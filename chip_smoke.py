@@ -19,9 +19,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``realise_tpu_torch.serving.Corrector`` on the card for requests of 1, 8
    and 32 sentences (length buckets 32, 64, 128); every encoder layer must
    have gone through both kernels, and the kernel path's logits must agree
-   with the plain path's.
+   with the plain path's;
+6. the four train kernels (attention and FFN, forward and backward, with the
+   dropout hash) against their plain versions on the card at H=768, 12
+   heads, I=3072, float32 and bfloat16, (B, S) = (8, 128) and (4, 37) with
+   padded rows, dropout rates 0 and 0.1: y, z, dx and every parameter
+   gradient, plus the masked-garbage check (padded rows of x set to 99, dy
+   zero there, leave the valid rows' y and dx unchanged);
+7. train-kernel times at S=128, bf16, B=32 and 256, forward and backward
+   apart: each kernel, its plain version, the autograd of a library forward
+   the port never calls, and the bound (the backward's counting its
+   recompute);
+8. training at full width: the published arch3 preset in bfloat16 at its
+   published dropout (0.1), seeded random weights and glyphs, synthetic
+   sentences featurized at bucket 128, ``realise_tpu_torch.training.Trainer``
+   on the card for 1 + 5 steps at B=32 and 2 steps at B=256, then one more
+   B=256 step under the profiler (device time by kernel name); every loss
+   must be finite and every encoder layer must have gone through the four
+   train kernels each step; then, in float32 at dropout 0 on one B=32 batch,
+   the kernel path's loss and gradients must agree with the plain path's.
 
-The last two lines are the kernels' JSON record and the run's JSON result.
+The last three lines are the kernels' JSON record (all six kernels), the
+card's name and power limit as nvidia-smi prints them, and the run's JSON
+result.
 """
 
 from __future__ import annotations
@@ -46,6 +66,23 @@ TOL = {"float32": 1e-4, "bfloat16": 6.25e-2}
 # random init a few percent of the 21128-way argmaxes are that close.
 LOGIT_TOL, ARGMAX_AGREE = 0.125, 0.99
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM data sheet, dense
+# Train kernels against their plain versions: max |kernel - plain| relative
+# to the largest |plain| of each tensor. float32 differs only in the order of
+# sums; in bfloat16 a one-ulp flip of a rounded intermediate (a probability,
+# a softmax gradient, a gelu) moves its consumers by about an ulp of the
+# result, 2^-8 of its largest value; allow four.
+TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# Training, kernel path vs plain path in float32 at dropout 0 (the two differ
+# in float32 summation order and in the scale's multiply vs divide): the loss
+# sum within 1e-5 relative, each gradient within 5e-3 of its largest |value|,
+# that largest value floored at 1e-4 of the largest over all tensors (the key
+# biases' gradient is zero in exact arithmetic, since the softmax ignores a
+# per-row shift, so both paths hold only rounding noise there). The glyph
+# convolutions are the loosest: their gradient passes the BatchNorm backward
+# over 4096 images, whose mean subtractions cancel most of each sum (6.6e-4
+# measured on an H100).
+PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 5e-3
+TRAIN_RATE = 0.1  # the published dropout of both sites
 
 
 def log(msg: str) -> None:
@@ -156,9 +193,10 @@ def time_ms(fn, flush, iters=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def attention_library(x, p, bias, eps=1e-12):
+def attention_library(x, p, bias, eps=1e-12, rate=0.0):
     """One PyTorch route to the same function: matmul projections, SDPA,
-    layer_norm. Timed as a yardstick only."""
+    layer_norm (and dropout at ``rate`` on the probabilities and the
+    output). Timed as a yardstick only."""
     import torch
     import torch.nn.functional as F
 
@@ -166,18 +204,20 @@ def attention_library(x, p, bias, eps=1e-12):
     qkv = torch.matmul(x, p["qkv_weight"].t()) + p["qkv_bias"].to(x.dtype)
     q, k, v = (t.view(b, s, HEADS, h // HEADS).transpose(1, 2)
                for t in qkv.split(h, dim=-1))
-    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    ctx = F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                         dropout_p=rate)
     attn = torch.matmul(ctx.transpose(1, 2).reshape(b, s, h),
                         p["out_weight"].t()) + p["out_bias"].to(x.dtype)
+    attn = F.dropout(attn, rate)
     return F.layer_norm(x + attn, (h,), p["ln_weight"].to(x.dtype),
                         p["ln_bias"].to(x.dtype), eps)
 
 
-def ffn_library(x, p, eps=1e-12):
+def ffn_library(x, p, eps=1e-12, rate=0.0):
     import torch.nn.functional as F
 
     t = F.gelu(F.linear(x, p["w1"], p["b1"].to(x.dtype)))
-    out = F.linear(t, p["w2"], p["b2"].to(x.dtype))
+    out = F.dropout(F.linear(t, p["w2"], p["b2"].to(x.dtype)), rate)
     return F.layer_norm(x + out, (x.shape[-1],), p["ln_weight"].to(x.dtype),
                         p["ln_bias"].to(x.dtype), eps)
 
@@ -378,6 +418,351 @@ def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
     return launches
 
 
+# ------------------------------------------------------------ train kernels
+def train_outputs(tbt, x, dy, p_att, p_ffn, bias, seed, rate, kernel):
+    """{output name: tensor} of the four train kernels (``kernel``) or their
+    plain versions on the same inputs; the FFN backward reads the plain z."""
+    suffix = "" if kernel else "_plain"
+    fn = lambda name: getattr(tbt, name + suffix)
+    out = {"attention_train_forward y": fn("attention_train_forward")(
+        x, p_att, bias, seed, HEADS, 1e-12, rate, rate)}
+    dx, g = fn("attention_train_backward")(x, dy, p_att, bias, seed, HEADS,
+                                           1e-12, rate, rate)
+    out["attention_train_backward dx"] = dx
+    out.update({f"attention_train_backward d{k}": v for k, v in g.items()})
+    y, z = fn("ffn_train_forward")(x, p_ffn, seed, 1e-12, rate)
+    out["ffn_train_forward y"], out["ffn_train_forward z"] = y, z
+    z0 = tbt.ffn_train_forward_plain(x, p_ffn, seed, 1e-12, rate)[1]
+    dx, g = fn("ffn_train_backward")(x, z0, dy, p_ffn, seed, 1e-12, rate)
+    out["ffn_train_backward dx"] = dx
+    out.update({f"ffn_train_backward d{k}": v for k, v in g.items()})
+    return out
+
+
+def check_train_kernels(device, gen):
+    """Phase 6: the train kernels against their plain versions; returns the
+    worst relative error per (kernel, dtype)."""
+    import torch
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+
+    worst = {}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for b, s, lengths in ((8, 128, (128, 100, 128, 64, 128, 7, 128, 128)),
+                              (4, 37, (37, 20, 37, 5))):
+            p_att, p_ffn, x, mask, bias4 = block_inputs(b, s, lengths, dtype,
+                                                        device, gen)
+            bias = bias4.reshape(b, s).float()
+            dy = torch.randn((b, s, H), generator=gen).to(device=device,
+                                                         dtype=dtype)
+            for rate in (0.0, TRAIN_RATE):
+                seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen))
+                got = train_outputs(tbt, x, dy, p_att, p_ffn, bias, seed, rate,
+                                    True)
+                want = train_outputs(tbt, x, dy, p_att, p_ffn, bias, seed,
+                                     rate, False)
+                sync(device)
+                for name, w in want.items():
+                    g = got[name]
+                    if g.shape != w.shape or g.dtype != w.dtype:
+                        fail(f"{name}: {g.shape}/{g.dtype}, plain "
+                             f"{w.shape}/{w.dtype}")
+                    err = ((g.float() - w.float()).abs().max()
+                           / w.float().abs().max().clamp_min(1e-30)).item()
+                    kname = name.split()[0]
+                    worst[(kname, dname)] = max(worst.get((kname, dname), 0.0),
+                                                err)
+                    if not err <= TRAIN_REL[dname]:
+                        fail(f"{name} {dname} B={b} S={s} rate={rate}: "
+                             f"relative error {err:.3e} > {TRAIN_REL[dname]}")
+                # Masked garbage: padded rows of x at 99 and dy zero there
+                # leave the valid rows' y and dx as they were.
+                valid = mask.bool()
+                dy0 = dy.masked_fill(~valid[..., None], 0.0)
+                garbage = x.masked_fill(~valid[..., None], 99.0)
+                errs = []
+                for xx in (x, garbage):
+                    y = tbt.attention_train_forward(xx, p_att, bias, seed, HEADS,
+                                                    1e-12, rate, rate)
+                    dx, _ = tbt.attention_train_backward(
+                        xx, dy0, p_att, bias, seed, HEADS, 1e-12, rate, rate)
+                    yf, z = tbt.ffn_train_forward(xx, p_ffn, seed, 1e-12, rate)
+                    dxf, _ = tbt.ffn_train_backward(xx, z, dy0, p_ffn, seed,
+                                                    1e-12, rate)
+                    errs.append([t[valid].float() for t in (y, dx, yf, dxf)])
+                sync(device)
+                err_g = max((a - c).abs().max().item()
+                            for a, c in zip(*errs))
+                log(f"check train kernels {dname} B={b} S={s} rate={rate}: "
+                    f"worst relative |kernel-plain| " + ", ".join(
+                        f"{k} {v:.2e}" for (k, d), v in sorted(worst.items())
+                        if d == dname)
+                    + f"; masked-garbage max diff {err_g:.3e}")
+                if err_g > 0.0:
+                    fail(f"train kernels {dname} B={b} S={s}: padded-row "
+                         f"garbage changed valid rows by {err_g}")
+    return worst
+
+
+def train_bound(name, b, s):
+    """(ms, 'operations'|'bytes') of a train kernel at bf16: FLOPs at the
+    tensor-core peak (the backward counts its recompute of the forward),
+    bytes of each input read once and each output written once."""
+    m, d = b * s, H // HEADS
+    core = 4 * b * HEADS * s * s * d            # q.k^T and P.V
+    att_fwd = 8 * m * H * H + core
+    weights = 2 * 4 * H * H + 4 * 6 * H
+    if name == "attention_train_forward":
+        flops, nbytes = att_fwd, 2 * 2 * m * H + weights + 4 * b * s
+    elif name == "attention_train_backward":
+        # recompute + dctx (2mH^2) + dV, dP, dQ, dK (2 core) + dWqkv, dWo,
+        # dx (6 + 2 + 6 mH^2)
+        flops = att_fwd + 16 * m * H * H + 2 * core
+        nbytes = 3 * 2 * m * H + weights + 4 * b * s + 4 * (4 * H * H + 6 * H)
+    elif name == "ffn_train_forward":
+        flops = 4 * m * H * INTER
+        nbytes = 2 * m * H + 4 * H * INTER + 4 * (INTER + 3 * H) + 2 * 2 * m * H
+    else:  # ffn_train_backward: t1, dW2, dinter, dW1, dx
+        flops = 10 * m * H * INTER
+        nbytes = (4 * 2 * m * H + 4 * H * INTER + 4 * (INTER + 2 * H)
+                  + 4 * (2 * H * INTER + INTER + 3 * H))
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flat_outputs(out):
+    """A train wrapper's output (y, (y, z) or (dx, {grads})) as a list."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out[1], dict):
+        return [out[0], *out[1].values()]
+    return list(out)
+
+
+def time_train_kernels(device, gen, card):
+    """Phase 7: {kernel: row at B=32}; rows at B=32 and 256 printed."""
+    import torch
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    rows = {}
+    r = TRAIN_RATE
+    for b in (32, 256):
+        p_att, p_ffn, x, _, bias4 = block_inputs(b, 128, [128] * b,
+                                                 torch.bfloat16, device, gen)
+        bias = bias4.reshape(b, 128).float()
+        dy = torch.randn((b, 128, H), generator=gen).to(device=device,
+                                                       dtype=torch.bfloat16)
+        seed = 4321
+        z = tbt.ffn_train_forward(x, p_ffn, seed, 1e-12, r)[1]
+        # Library yardstick: autograd of the phase-4 library forwards with
+        # dropout; the backward is timed alone on a retained graph.
+        lib_x = x.detach().clone().requires_grad_()
+        lib_att = {k: v.detach().clone().requires_grad_() for k, v in p_att.items()}
+        lib_ffn = {k: v.detach().clone().requires_grad_() for k, v in p_ffn.items()}
+        att_y = attention_library(lib_x, lib_att, bias4, rate=r)
+        ffn_y = ffn_library(lib_x, lib_ffn, rate=r)
+        att_in = [lib_x, *lib_att.values()]
+        ffn_in = [lib_x, *lib_ffn.values()]
+        cases = {
+            "attention_train_forward": (
+                lambda: tbt.attention_train_forward(x, p_att, bias, seed, HEADS,
+                                                    1e-12, r, r),
+                lambda: tbt.attention_train_forward_plain(x, p_att, bias, seed,
+                                                          HEADS, 1e-12, r, r),
+                lambda: attention_library(lib_x, lib_att, bias4, rate=r)),
+            "attention_train_backward": (
+                lambda: tbt.attention_train_backward(x, dy, p_att, bias, seed,
+                                                     HEADS, 1e-12, r, r),
+                lambda: tbt.attention_train_backward_plain(
+                    x, dy, p_att, bias, seed, HEADS, 1e-12, r, r),
+                lambda: torch.autograd.grad(att_y, att_in, dy,
+                                            retain_graph=True)),
+            "ffn_train_forward": (
+                lambda: tbt.ffn_train_forward(x, p_ffn, seed, 1e-12, r),
+                lambda: tbt.ffn_train_forward_plain(x, p_ffn, seed, 1e-12, r),
+                lambda: ffn_library(lib_x, lib_ffn, rate=r)),
+            "ffn_train_backward": (
+                lambda: tbt.ffn_train_backward(x, z, dy, p_ffn, seed, 1e-12, r),
+                lambda: tbt.ffn_train_backward_plain(x, z, dy, p_ffn, seed,
+                                                     1e-12, r),
+                lambda: torch.autograd.grad(ffn_y, ffn_in, dy,
+                                            retain_graph=True)),
+        }
+        for name, (kern, plain, library) in cases.items():
+            err = max((k.float() - w.float()).abs().max().item()
+                      for k, w in zip(flat_outputs(kern()),
+                                      flat_outputs(plain())))
+            ms = time_ms(kern, flush)
+            plain_ms = time_ms(plain, flush, iters=5, warmup=1)
+            library_ms = time_ms(library, flush)
+            bound_ms, bound_by = train_bound(name, b, 128)
+            log(f"time {name} bf16 B={b} S=128 rate={r}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}; kernel at "
+                f"{bound_ms / ms:.1%} of it), max|kernel-plain| {err:.3e} "
+                f"[{card}]")
+            if b == 256:
+                parts = kernel_breakdown(kern, iters=3)
+                for part_ms, kname in parts[:8]:
+                    log(f"  profile {name} B={b}: {part_ms:.4f} ms {kname[:90]}")
+            if b == 32:
+                rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by,
+                                  library_ms=library_ms)
+        del att_y, ffn_y
+    return rows
+
+
+# ---------------------------------------------------------------- training
+def train_batches(cfg, n, batch_size, seed):
+    """``n`` host batches of synthetic sentences (20-100 chars, the JAX
+    package's bench data) featurized at bucket 128 through the Featurizer."""
+    from realise_tpu_torch.data.dataset import synthetic_dataset
+    from realise_tpu_torch.data.features import Featurizer
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+
+    tok = WordPieceTokenizer(vocab_to_dict(build_synthetic_vocab(
+        size=cfg.vocab_size, cjk_chars=REAL_VOCAB_CJK_CHARS)))
+    feat = Featurizer(tok, cfg)
+    data = synthetic_dataset(tok, num_examples=n * batch_size, min_len=20,
+                             max_len=100, seed=seed)
+    return [feat.device_batch(feat.featurize(
+        data[i * batch_size:(i + 1) * batch_size], seq_len=128))
+        for i in range(n)]
+
+
+def seeded_model(cfg, seed):
+    import torch
+
+    from realise_tpu_torch.models.realise import Realise
+
+    gen = torch.Generator().manual_seed(seed)
+    model = Realise(cfg, generator=gen)
+    model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
+                                     generator=gen) < 0.5).float())
+    return model
+
+
+def train(device, cfg, card):
+    """Phase 8: the Trainer at full width in bf16; returns the launches of
+    the train kernels over the run."""
+    import math
+
+    import torch
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.training.trainer import Trainer
+
+    layers = cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers
+    t0 = time.perf_counter()
+    model = seeded_model(cfg, SEED)
+    small = train_batches(cfg, 6, 32, SEED)
+    large = train_batches(cfg, 2, 256, SEED + 1)
+    trainer = Trainer(cfg, model, learning_rate=5e-5, warmup_steps=2,
+                      total_steps=100, weight_decay=0.01, max_grad_norm=1.0,
+                      device=device, seed=SEED)
+    sync(device)
+    log(f"train: model, glyphs and {6 * 32 + 2 * 256} sentences ready in "
+        f"{time.perf_counter() - t0:.2f} s; {cfg.dtype}, dropout "
+        f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, "
+        f"use_kernels={trainer.use_kernels}, {layers} encoder layers, "
+        f"{sum(p.numel() for p in model.parameters())} parameters")
+    if not trainer.use_kernels:
+        fail("the Trainer did not turn the kernels on for CUDA")
+    for fn in tbt.KERNEL_WRAPPERS:
+        fn.launches = 0
+    totals = [0] * 4
+    for b, batches in ((32, small), (256, large)):
+        torch.cuda.reset_peak_memory_stats(device)
+        times = []
+        for i, batch in enumerate(batches):
+            before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+            sync(device)
+            t = time.perf_counter()
+            loss = float(trainer.train_step(batch))  # reads back: synchronised
+            dt = time.perf_counter() - t
+            per_step = [fn.launches - n for fn, n in zip(tbt.KERNEL_WRAPPERS,
+                                                         before)]
+            warm = b == 32 and i == 0
+            log(f"train: B={b} step {trainer.step}{' (warm-up)' if warm else ''}"
+                f": loss {loss:.6f}, {1e3 * dt:.3f} ms, {b / dt:.1f} sentences/s,"
+                f" launches {per_step}")
+            if not math.isfinite(loss):
+                fail(f"non-finite loss at step {trainer.step}")
+            if per_step != [layers] * 4:
+                fail(f"train kernels launched {per_step} times in a step, "
+                     f"expected {layers} each")
+            if not warm:
+                times.append(dt)
+        peak = torch.cuda.max_memory_allocated(device)
+        log(f"train: B={b} over {len(times)} timed steps: mean step "
+            f"{1e3 * sum(times) / len(times):.3f} ms, "
+            f"{b * len(times) / sum(times):.1f} sentences/s, peak memory "
+            f"{peak / 2 ** 30:.2f} GiB [{card}]")
+    # Where a B=256 step's time goes: device time by kernel name over one
+    # profiled step (itself a step of the run, checked like the others).
+    before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+    t = time.perf_counter()
+    parts = kernel_breakdown(lambda: trainer.train_step(large[-1]), iters=1)
+    dt = time.perf_counter() - t
+    if [fn.launches - n for fn, n in zip(tbt.KERNEL_WRAPPERS, before)] != \
+            [layers] * 4:
+        fail("the profiled step missed a train kernel launch")
+    busy = sum(ms for ms, _ in parts)
+    log(f"train: profiled B=256 step: {busy:.3f} ms of kernels in "
+        f"{1e3 * dt:.3f} ms on the host clock (profiler on), "
+        f"{len(parts)} kernel names")
+    for part_ms, kname in parts[:16]:
+        log(f"  profile train step: {part_ms:.4f} ms {kname[:100]}")
+    return {fn.__name__: fn.launches for fn in tbt.KERNEL_WRAPPERS}
+
+
+def check_train_paths(device, cfg):
+    """The kernel path against the plain path in float32 at dropout 0 on one
+    B=32 batch: loss sum and every gradient."""
+    import torch
+
+    cfg = cfg.replace(dtype="float32", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    model = seeded_model(cfg, SEED + 2).to(device).train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=device)
+             for k, v in train_batches(cfg, 1, 32, SEED + 3)[0].items()}
+    results = []
+    for use_kernels in (True, False):
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        out = model(batch, use_kernels=use_kernels,
+                    generator=torch.Generator().manual_seed(0))
+        out["loss_sum"].backward()
+        results.append((out["loss_sum"].item(),
+                        {n: p.grad.clone() for n, p in model.named_parameters()}))
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    floor = 1e-4 * max(g.abs().max().item() for g in grads_p.values())
+    worst_name, worst = "", 0.0
+    for n, g in grads_p.items():
+        err = ((grads_k[n] - g).abs().max().item()
+               / max(g.abs().max().item(), floor))
+        if err > worst:
+            worst_name, worst = n, err
+    log(f"train paths f32 dropout 0 B=32: loss_sum kernel {loss_k:.6f} plain "
+        f"{loss_p:.6f} (relative {loss_err:.2e}, tol {PATH_LOSS_REL}); worst "
+        f"gradient {worst_name} relative {worst:.2e} (tol {PATH_GRAD_REL}) "
+        f"over {len(grads_p)} tensors")
+    if loss_err > PATH_LOSS_REL or worst > PATH_GRAD_REL:
+        fail("the training kernel path disagrees with the plain path")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -398,7 +783,7 @@ def main() -> int:
         f"nvidia-smi: {card}")
 
     t = time.perf_counter()
-    logs = build(["bert_block"])
+    logs = build(["bert_block", "bert_block_train"])  # one nvcc each, together
     log(f"build: {time.perf_counter() - t:.2f} s")
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -409,15 +794,28 @@ def main() -> int:
     rows = time_kernels(device, gen, card)
     cfg = config_for("bert-pho2-res-arch3", vocab_size=21128, dtype="bfloat16")
     launches = serve(device, cfg, gen)
+    worst_train = check_train_kernels(device, gen)
+    rows.update(time_train_kernels(device, gen, card))
+    launches.update(train(device, cfg, card))
+    check_train_paths(device, cfg)
 
+    train_src = "realise_tpu/ops/pallas/bert_block_train.py"
     sources = {"attention_block": "realise_tpu/ops/pallas/bert_block.py:67",
-               "ffn_block": "realise_tpu/ops/pallas/bert_block.py:162"}
+               "ffn_block": "realise_tpu/ops/pallas/bert_block.py:162",
+               "attention_train_forward": f"{train_src}:226",
+               "attention_train_backward": f"{train_src}:356",
+               "ffn_train_forward": f"{train_src}:737",
+               "ffn_train_backward": f"{train_src}:821"}
     kernels = [dict(name=name, route="cuda",
-                    source="realise_tpu_torch/csrc/bert_block.cu",
-                    replaces=sources[name], launches=launches[name],
-                    **rows[name]) for name in sources]
+                    source=("realise_tpu_torch/csrc/bert_block.cu"
+                            if name in ("attention_block", "ffn_block") else
+                            "realise_tpu_torch/csrc/bert_block_train.cu"),
+                    replaces=src, launches=launches[name], **rows[name])
+               for name, src in sources.items()]
     log("worst |kernel-plain| over the checks: " + ", ".join(
         f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst.items())))
+    log("worst relative |kernel-plain| of the train kernels: " + ", ".join(
+        f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst_train.items())))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,7 @@
 """The ReaLiSe arch3 model (``bert-pho2-res-arch3``) as an ``nn.Module``.
 
-The port of the deterministic forward of ``realise_tpu.models.realise``
-(``apply_realise``, models/realise.py:692-853) for the published wiring
-(reference: src/models.py:652-870):
+The port of ``realise_tpu.models.realise.apply_realise`` (models/realise.py:
+692-853) for the published wiring (reference: src/models.py:652-870):
 
 * semantic stream: a BERT over ``src_idx``;
 * phonetic stream: pinyin chars → masked GRU last hidden per token → pho BERT;
@@ -18,8 +17,16 @@ the JAX package maps them), so :func:`realise_tpu_torch.models.convert.
 state_dict_from_jax` carries JAX weights across and the JAX importer reads a
 port state dict back. Serving swaps the per-token GRU and conv streams for
 (V, H) tables that depend only on the token id
-(:func:`precompute_inference_tables`). The vocabulary-factorized training
-streams and the other presets of the zoo are not ported yet.
+(:func:`precompute_inference_tables`).
+
+A model starts in eval mode, the deterministic forward. In training mode
+(``model.train()``) the forward is the training step's:
+dropout on each stack's embedding output, inside every encoder layer and on
+the fused hiddens before the head, all drawn from the caller's host
+generator; BatchNorm on batch statistics (updating the running ones); and
+``loss_sum``/``loss_count`` of :func:`masked_cross_entropy_sum`. The streams
+run per token; the vocabulary-factorized training streams and the other
+presets of the zoo are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,8 +41,47 @@ from realise_tpu_torch.config import PHO2_VOCAB_SIZE, RealiseConfig
 from realise_tpu_torch.ops.bert import BertModel
 from realise_tpu_torch.ops.fusion import gate_fusion
 from realise_tpu_torch.ops.gru import gru_last_hidden
-from realise_tpu_torch.ops.layers import embed, layer_norm
+from realise_tpu_torch.ops.layers import dropout, embed, layer_norm, random_key
 from realise_tpu_torch.ops.resnet import CharResNet
+
+
+class _MaskedCE(torch.autograd.Function):
+    """(sum of NLL over masked positions, their count) in float32, with the
+    JAX package's hand VJP (models/realise.py:599-678): the logits are
+    ``round(logits + bias rounded to their dtype)``, the gradient of the
+    logits is emitted in their dtype and the bias gradient is the float32
+    column sum of that rounded gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, bias, labels, mask):
+        l32 = _biased32(logits, bias)
+        logz = torch.logsumexp(l32, dim=-1)
+        gold = l32.gather(-1, labels[:, None])[:, 0]
+        m = mask.float()
+        ctx.save_for_backward(logits, bias, labels, m, logz)
+        return ((logz - gold) * m).sum(), m.sum()
+
+    @staticmethod
+    def backward(ctx, dsum, _dcount):
+        logits, bias, labels, m, logz = ctx.saved_tensors
+        p = torch.exp(_biased32(logits, bias) - logz[:, None])
+        p[torch.arange(p.shape[0], device=p.device), labels] -= 1.0
+        dlogits = (p * (dsum * m)[:, None]).to(logits.dtype)
+        return dlogits, dlogits.float().sum(0), None, None
+
+
+def _biased32(logits: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    b32 = bias.to(logits.dtype).float()
+    return (logits.float() + b32).to(logits.dtype).float()
+
+
+def masked_cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                             loss_mask: torch.Tensor, bias: torch.Tensor):
+    """(B, S, V) unbiased logits, (V,) float32 head bias → (loss sum, count)
+    over the positions where ``loss_mask`` is 1."""
+    v = logits.shape[-1]
+    return _MaskedCE.apply(logits.reshape(-1, v), bias,
+                           labels.reshape(-1).long(), loss_mask.reshape(-1))
 
 
 class TiedClassifier(nn.Module):
@@ -85,6 +131,7 @@ class Realise(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.init_weights(generator)
+        self.eval()
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -137,21 +184,29 @@ class Realise(nn.Module):
     def forward(self, batch: Dict[str, torch.Tensor],
                 tables: Optional[Dict[str, torch.Tensor]] = None,
                 use_kernels: bool = False,
-                return_gates: bool = False) -> Dict[str, torch.Tensor]:
-        """Deterministic forward → {'logits' (B, S, V), 'gates'?}.
+                return_gates: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """→ {'logits' (B, S, V), 'gates'?, 'loss_sum', 'loss_count'}.
 
         ``batch``: src_idx, masks (B, S), and pho_idx (B, S, P) + pho_lens
-        (B, S) unless ``tables`` holds the precomputed 'pho' table.
-        ``tables``: {'res', 'pho'} (V, H) from :func:`precompute_inference_tables`.
-        ``use_kernels``: run every encoder layer through the fused block
-        kernels (ops/kernels/bert_block.py)."""
+        (B, S) unless ``tables`` holds the precomputed 'pho' table; with
+        tgt_idx and loss_masks (B, S) the loss sum and count come too.
+        ``tables``: {'res', 'pho'} (V, H) from :func:`precompute_inference_tables`
+        (eval mode only). ``use_kernels``: run every encoder layer through the
+        fused block kernels (ops/kernels/bert_block.py in eval mode,
+        bert_block_train.py in training mode). ``generator``: the host
+        generator of the training mode's dropout keys and layer seeds."""
         cfg, dtype = self.cfg, self.dtype
         mask, src_idx = batch["masks"], batch["src_idx"]
         b, s = src_idx.shape
+        if self.training and tables:
+            raise ValueError("the inference tables serve eval mode only; "
+                             "training runs the per-token streams")
         tables = tables or {}
 
         sem = self.bert(input_ids=src_idx, attention_mask=mask,
-                        use_kernels=use_kernels)
+                        use_kernels=use_kernels, generator=generator)
 
         if "res" in tables:
             feats = tables["res"].to(dtype)[src_idx]
@@ -167,7 +222,7 @@ class Realise(nn.Module):
                                       batch["pho_lens"].reshape(b * s))
             gru_h = gru_h.reshape(b, s, -1)
         pho = self.pho_model(inputs_embeds=gru_h, attention_mask=mask,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, generator=generator)
 
         hidden, gates = gate_fusion(
             self.gate_net.weight, self.gate_net.bias, [sem, pho, res], mask,
@@ -178,14 +233,21 @@ class Realise(nn.Module):
             hidden = self.output_block(inputs_embeds=hidden,
                                        attention_mask=mask,
                                        position_ids=position_ids,
-                                       use_kernels=use_kernels)
+                                       use_kernels=use_kernels,
+                                       generator=generator)
+        if self.training and generator is not None:
+            hidden = dropout(hidden, cfg.hidden_dropout_prob,
+                             random_key(generator))
 
         word = self.bert.embeddings.word_embeddings.weight
-        logits = (torch.matmul(hidden, word.to(dtype).t())
-                  + self.classifier.bias.to(dtype))
-        out = {"logits": logits}
+        bias = self.classifier.bias
+        logits_nb = torch.matmul(hidden, word.to(dtype).t())
+        out = {"logits": logits_nb + bias.to(dtype)}
         if return_gates:
             out["gates"] = gates
+        if "tgt_idx" in batch and "loss_masks" in batch:
+            out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
+                logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
         return out
 
 

@@ -5,10 +5,20 @@ The module tree mirrors HuggingFace's BertModel (``embeddings.*``,
 names that ``realise_tpu/models/torch_import.py`` maps. The computation is
 ``realise_tpu.ops.bert`` with its mixed-precision rules (ops/layers.py):
 post-LN layers, an additive −10000 padding bias, ``inputs_embeds`` and a
-position-id override. Layers run as a ``ModuleList``. A layer runs the two
-fused block kernels (ops/kernels/bert_block.py) when ``use_kernels`` is set,
-else the plain sub-blocks :func:`_self_attention` / :func:`_ffn`. The port's
-forward is always deterministic (dropout and the pooler are training-side).
+position-id override. Layers run as a ``ModuleList``.
+
+A layer in eval mode runs the two fused block kernels
+(ops/kernels/bert_block.py) when ``use_kernels`` is set, else the plain
+sub-blocks :func:`_self_attention` / :func:`_ffn`. In training mode it runs
+the differentiable train blocks with in-kernel dropout
+(ops/kernels/bert_block_train.py; their plain versions for CPU tensors) when
+``use_kernels`` is set, with one seed per layer drawn on the host from the
+caller's generator in [0, 2**31 - 1) for every dropout site of the layer;
+else the plain sub-blocks with the counter-hash ``dropout`` at the
+reference's sites (attention probabilities, attention output, FFN output),
+one key per site. The embedding output is dropped in training mode too. The
+pooler is not ported. ``BertLayer`` and ``BertModel`` start in eval mode,
+the deterministic forward; ``.train()`` turns the training forward on.
 """
 
 from __future__ import annotations
@@ -19,8 +29,32 @@ import torch
 from torch import nn
 
 from realise_tpu_torch.config import RealiseConfig
-from realise_tpu_torch.ops.kernels import bert_block
-from realise_tpu_torch.ops.layers import ACTIVATIONS, dense, embed, layer_norm
+from realise_tpu_torch.ops.kernels import bert_block, bert_block_train
+from realise_tpu_torch.ops.layers import (
+    ACTIVATIONS,
+    dense,
+    dropout,
+    embed,
+    layer_norm,
+    random_key,
+)
+
+KeyPair = Tuple[int, int]
+
+
+def _generator_for(generator: Optional[torch.Generator], *rates: float):
+    """The generator dropout draws from; raises when a rate needs one."""
+    if generator is None and any(r > 0.0 for r in rates):
+        raise ValueError("dropout in training mode needs a torch.Generator")
+    return generator
+
+
+def layer_seed(generator: Optional[torch.Generator]) -> int:
+    """One int32 seed in [0, 2**31 - 1) (jax.random.randint's bounds in the
+    JAX encoder), drawn on the host; 0 without a generator."""
+    if generator is None:
+        return 0
+    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
 
 
 def attention_bias_from_mask(attention_mask: torch.Tensor,
@@ -76,7 +110,10 @@ class BertIntermediate(nn.Module):
 
 
 def _self_attention(att: BertAttention, hidden: torch.Tensor,
-                    attn_bias: torch.Tensor, cfg: RealiseConfig) -> torch.Tensor:
+                    attn_bias: torch.Tensor, cfg: RealiseConfig,
+                    keys: Optional[Tuple[KeyPair, KeyPair]] = None
+                    ) -> torch.Tensor:
+    """``keys``: dropout keys of the probabilities and of the output."""
     b, s, h = hidden.shape
     nh, hd = cfg.num_attention_heads, cfg.head_dim
     sa = att.self
@@ -87,19 +124,25 @@ def _self_attention(att: BertAttention, hidden: torch.Tensor,
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     probs = torch.softmax(scores + attn_bias.float(), dim=-1)
+    if keys is not None:
+        probs = dropout(probs, cfg.attention_probs_dropout_prob, keys[0])
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(hidden.dtype).float(),
                        v.float()).to(hidden.dtype).reshape(b, s, h)
     out = dense(ctx, att.output.dense.weight, att.output.dense.bias)
+    if keys is not None:
+        out = dropout(out, cfg.hidden_dropout_prob, keys[1])
     ln = att.output.LayerNorm
     return layer_norm(hidden + out, ln.weight, ln.bias, cfg.layer_norm_eps)
 
 
-def _ffn(layer: "BertLayer", hidden: torch.Tensor,
-         cfg: RealiseConfig) -> torch.Tensor:
+def _ffn(layer: "BertLayer", hidden: torch.Tensor, cfg: RealiseConfig,
+         key: Optional[KeyPair] = None) -> torch.Tensor:
     act = ACTIVATIONS[cfg.hidden_act]
     inter = act(dense(hidden, layer.intermediate.dense.weight,
                       layer.intermediate.dense.bias))
     out = dense(inter, layer.output.dense.weight, layer.output.dense.bias)
+    if key is not None:
+        out = dropout(out, cfg.hidden_dropout_prob, key)
     ln = layer.output.LayerNorm
     return layer_norm(hidden + out, ln.weight, ln.bias, cfg.layer_norm_eps)
 
@@ -113,6 +156,7 @@ class BertLayer(nn.Module):
         self.output = BertDenseLN(cfg.intermediate_size, cfg.hidden_size,
                                   cfg.layer_norm_eps)
         self._packed: Optional[Tuple[tuple, Dict, Dict]] = None
+        self.eval()
 
     def kernel_params(self, dtype: torch.dtype) -> Tuple[Dict, Dict]:
         """The packed (attention, ffn) parameters of the block kernels in
@@ -132,9 +176,32 @@ class BertLayer(nn.Module):
                     self.output.LayerNorm, dtype))
         return self._packed[1], self._packed[2]
 
+    def train_params(self) -> Tuple[Dict, Dict]:
+        """The live parameters the train blocks take, by the names of
+        ``bert_block_train.ATTN_PARAMS`` / ``FFN_PARAMS`` (no copy, no
+        detach: their gradients reach the modules)."""
+        att, sa = self.attention, self.attention.self
+        return ({"q_weight": sa.query.weight, "q_bias": sa.query.bias,
+                 "k_weight": sa.key.weight, "k_bias": sa.key.bias,
+                 "v_weight": sa.value.weight, "v_bias": sa.value.bias,
+                 "out_weight": att.output.dense.weight,
+                 "out_bias": att.output.dense.bias,
+                 "ln_weight": att.output.LayerNorm.weight,
+                 "ln_bias": att.output.LayerNorm.bias},
+                {"w1": self.intermediate.dense.weight,
+                 "b1": self.intermediate.dense.bias,
+                 "w2": self.output.dense.weight,
+                 "b2": self.output.dense.bias,
+                 "ln_weight": self.output.LayerNorm.weight,
+                 "ln_bias": self.output.LayerNorm.bias})
+
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
-                use_kernels: bool = False) -> torch.Tensor:
+                use_kernels: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
+        if self.training:
+            return self._train_forward(hidden, attn_bias, use_kernels,
+                                       generator)
         if use_kernels:
             p_att, p_ffn = self.kernel_params(hidden.dtype)
             hidden = bert_block.attention_block(
@@ -143,6 +210,25 @@ class BertLayer(nn.Module):
             return bert_block.ffn_block(hidden, p_ffn, cfg.layer_norm_eps)
         hidden = _self_attention(self.attention, hidden, attn_bias, cfg)
         return _ffn(self, hidden, cfg)
+
+    def _train_forward(self, hidden, attn_bias, use_kernels, generator):
+        cfg = self.cfg
+        p_rate = cfg.attention_probs_dropout_prob
+        h_rate = cfg.hidden_dropout_prob
+        if use_kernels:
+            seed = layer_seed(generator)
+            p_att, p_ffn = self.train_params()
+            hidden = bert_block_train.attention_block_train(
+                hidden, p_att, attn_bias, seed, cfg.num_attention_heads,
+                cfg.layer_norm_eps, p_rate, h_rate)
+            return bert_block_train.ffn_block_train(
+                hidden, p_ffn, seed, cfg.layer_norm_eps, h_rate)
+        gen = _generator_for(generator, p_rate, h_rate)
+        keys = (None if gen is None else
+                (random_key(gen), random_key(gen), random_key(gen)))
+        hidden = _self_attention(self.attention, hidden, attn_bias, cfg,
+                                 keys and keys[:2])
+        return _ffn(self, hidden, cfg, keys and keys[2])
 
 
 class BertEncoder(nn.Module):
@@ -160,6 +246,7 @@ class BertModel(nn.Module):
         self.cfg = cfg
         self.embeddings = BertEmbeddings(cfg, with_word=with_word)
         self.encoder = BertEncoder(cfg, num_layers)
+        self.eval()
 
     def embedding_output(self, input_ids: Optional[torch.Tensor] = None,
                          inputs_embeds: Optional[torch.Tensor] = None,
@@ -193,9 +280,19 @@ class BertModel(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,
                 position_ids: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
-                use_kernels: bool = False) -> torch.Tensor:
+                use_kernels: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` (training mode): the host generator every dropout
+        key and layer seed of this stack is drawn from."""
+        cfg = self.cfg
         hidden = self.embedding_output(input_ids, inputs_embeds,
                                        position_ids, token_type_ids)
+        if self.training:
+            gen = _generator_for(generator, cfg.hidden_dropout_prob,
+                                 cfg.attention_probs_dropout_prob)
+            if gen is not None:
+                hidden = dropout(hidden, cfg.hidden_dropout_prob,
+                                 random_key(gen))
         if attention_mask is None:
             attention_mask = torch.ones(hidden.shape[:2], dtype=torch.long,
                                         device=hidden.device)
@@ -205,5 +302,6 @@ class BertModel(nn.Module):
             # values, as the Pallas kernel reads them): convert once per stack.
             attn_bias = attn_bias.reshape(hidden.shape[:2]).float()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias, use_kernels=use_kernels)
+            hidden = layer(hidden, attn_bias, use_kernels=use_kernels,
+                           generator=generator)
         return hidden

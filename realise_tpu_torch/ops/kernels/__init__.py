@@ -4,6 +4,13 @@
   deterministic serving path (counterparts of
   ``realise_tpu/ops/pallas/bert_block.py``), CUDA C++ in
   ``csrc/bert_block.cu``.
+* :mod:`bert_block_train` — the training step's attention and FFN sub-blocks
+  with dropout, forward and backward (counterparts of
+  ``realise_tpu/ops/pallas/bert_block_train.py``), CUDA C++ in
+  ``csrc/bert_block_train.cu``.
+
+Both CUDA sources share ``csrc/bert_block_common.cuh`` (the tensor-core and
+float32 GEMMs, the attention cores, LayerNorm rows, the dropout hash).
 
 Each kernel has a plain PyTorch version in the same module. A wrapper takes
 the plain version for a CPU tensor only; for a CUDA tensor it launches its
@@ -28,7 +35,8 @@ def kernels_unviable_reason(cfg, dtype: torch.dtype,
                             device: Optional[torch.device] = None) -> Optional[str]:
     """Why this config cannot run the fused block kernels (None = it can).
 
-    The twin of ``realise_tpu.ops.pallas.pallas_unviable_reason``. ``device``
+    The twin of ``realise_tpu.ops.pallas.pallas_unviable_reason``, for the
+    serving and the training kernels alike. ``device``
     defaults to CUDA; on the CPU only the function checks apply, since the
     wrappers take their plain versions there."""
     if cfg.hidden_act != "gelu":

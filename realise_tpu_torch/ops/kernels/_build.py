@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for sm_90a into ``build/realise_tpu_torch/lib<name>.so`` beside
 the package (``build/`` is ignored by git). A library is rebuilt when the
-hash of its source and flags changes, and is loaded with ``ctypes``. Nothing
-happens at import time: the first CUDA launch builds and loads.
+hash of its source, of every ``csrc/*.cuh`` header it includes (directly or
+through another header) and of the flags changes, and is loaded with
+``ctypes``. Nothing happens at import time: the first CUDA launch builds and
+loads.
 """
 
 from __future__ import annotations
@@ -12,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -38,11 +41,32 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and the local headers it includes, transitively."""
+    seen: List[Path] = []
+    todo = [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC_DIR / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return seen
+
+
 def _paths(name: str):
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                            ).hexdigest()
-    return src, BUILD_DIR / f"lib{name}.so", BUILD_DIR / f"lib{name}.sha256", digest
+    files = sources(name)
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in files:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = h.hexdigest()
+    return files[0], BUILD_DIR / f"lib{name}.so", BUILD_DIR / f"lib{name}.sha256", digest
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:

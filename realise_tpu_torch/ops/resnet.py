@@ -1,14 +1,18 @@
-"""CharResNet glyph encoder (the "See" stream), eval mode.
+"""CharResNet glyph encoder (the "See" stream).
 
-The port of ``realise_tpu.ops.resnet.char_resnet(train=False)`` for the
+The port of ``realise_tpu.ops.resnet.char_resnet`` for the
 ``resnet`` variant (reference: src/char_cnn.py:9-55): five stride-2
 BasicBlocks take an F×32×32 glyph stack to an H-vector, each block
 conv3×3-BN-ReLU-conv3×3-BN plus a 1×1-conv-BN shortcut. Inputs stay NCHW and
 kernels OIHW, torch's own layout; convolutions pad symmetrically (torch's
-``padding=1``). BatchNorm reads its running statistics (eps 1e-5) and is
-applied in float32 as ``x * inv + (bias - mean * inv)``, the JAX form. The
+``padding=1``). BatchNorm (eps 1e-5) is applied in float32 as
+``x * inv + (bias - mean * inv)``, the JAX form: in eval mode with the
+running statistics, in training mode (the module's ``training`` flag) with
+the batch's mean and biased variance over (N, H, W), while the running
+statistics move by momentum 0.1 towards the batch mean and the unbiased
+variance (torch's and the JAX package's rule; updated in place). The
 module names are the reference's (``res_block{k}.residual_function.{0,1,3,4}``,
-``res_block{k}.shortcut.{0,1}``).
+``res_block{k}.shortcut.{0,1}``). ``CharResNet`` starts in eval mode.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def _channels(variant: str, hidden_size: int = 768) -> List[int]:
@@ -35,6 +40,28 @@ def batch_norm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
     inv = torch.rsqrt(bn.running_var + BN_EPS) * bn.weight
     shift = bn.bias - bn.running_mean * inv
     return (x.float() * inv[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
+def batch_norm_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Batch statistics in float32; updates ``bn``'s running statistics."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = x32.var(dim=(0, 2, 3), unbiased=False)
+    with torch.no_grad():
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        unbiased = var * (n / max(n - 1, 1))
+        bn.running_mean.copy_((1 - BN_MOMENTUM) * bn.running_mean
+                              + BN_MOMENTUM * mean)
+        bn.running_var.copy_((1 - BN_MOMENTUM) * bn.running_var
+                             + BN_MOMENTUM * unbiased)
+        bn.num_batches_tracked += 1
+    inv = torch.rsqrt(var + BN_EPS) * bn.weight
+    shift = bn.bias - mean * inv
+    return (x32 * inv[:, None, None] + shift[:, None, None]).to(x.dtype)
+
+
+def batch_norm(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    return batch_norm_train(bn, x) if bn.training else batch_norm_eval(bn, x)
 
 
 def conv2d(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -62,11 +89,11 @@ class BasicBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rf = self.residual_function
-        h = torch.relu(batch_norm_eval(rf[1], conv2d(rf[0], x)))
-        h = batch_norm_eval(rf[4], conv2d(rf[3], h))
+        h = torch.relu(batch_norm(rf[1], conv2d(rf[0], x)))
+        h = batch_norm(rf[4], conv2d(rf[3], h))
         sc = x
         if len(self.shortcut):
-            sc = batch_norm_eval(self.shortcut[1], conv2d(self.shortcut[0], x))
+            sc = batch_norm(self.shortcut[1], conv2d(self.shortcut[0], x))
         return torch.relu(h + sc)
 
 
@@ -80,6 +107,7 @@ class CharResNet(nn.Module):
         for i, ch in enumerate(_channels(variant, hidden_size)):
             self.add_module(f"res_block{i + 1}", BasicBlock(prev, ch, stride=2))
             prev = ch
+        self.eval()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.children():

@@ -4,8 +4,9 @@
 
 Orbax is JAX-only, so reading a JAX checkpoint directory takes the JAX
 package's ``load_checkpoint``, then ``models.convert.state_dict_from_jax``,
-then :func:`save_checkpoint` here. Optimizer state, ``retain_top_k`` and
-``training_args.json`` belong to the training slice and are not ported yet.
+then :func:`save_checkpoint` here. The training CLI writes this format too.
+Optimizer state, ``--resume``, ``retain_top_k`` and ``training_args.json``
+are not ported yet (ROADMAP queue A item 2).
 """
 
 from __future__ import annotations

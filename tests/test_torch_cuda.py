@@ -19,6 +19,7 @@ from realise_tpu_torch.config import config_for
 from realise_tpu_torch.models.realise import Realise
 from realise_tpu_torch.ops import bert as tbert
 from realise_tpu_torch.ops.kernels import bert_block as tbb
+from realise_tpu_torch.ops.kernels import bert_block_train as tbt
 from realise_tpu_torch.training.checkpoint import save_checkpoint
 
 pytestmark = pytest.mark.cuda
@@ -50,6 +51,31 @@ def _layer(hidden, heads, seed=0):
             else:
                 p.normal_(0.0, 0.1, generator=gen)
     return layer
+
+
+# Train kernels against their plain versions, max |kernel - plain| relative
+# to the largest |plain| of each tensor: float32 differs only in the order of
+# sums; in bfloat16 a one-ulp flip of a rounded intermediate (a probability,
+# a softmax gradient, a gelu) moves its consumers by about an ulp of the
+# result, 2^-8 of its largest value, so allow four such ulps.
+TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max() /
+            want.abs().max().clamp_min(1e-30)).item()
+
+
+def _train_params(layer):
+    att, sa = layer.attention, layer.attention.self
+    return ([sa.query.weight, sa.query.bias, sa.key.weight, sa.key.bias,
+             sa.value.weight, sa.value.bias, att.output.dense.weight,
+             att.output.dense.bias, att.output.LayerNorm.weight,
+             att.output.LayerNorm.bias],
+            [layer.intermediate.dense.weight, layer.intermediate.dense.bias,
+             layer.output.dense.weight, layer.output.dense.bias,
+             layer.output.LayerNorm.weight, layer.output.LayerNorm.bias])
 
 
 def _tiny_cfg(dtype):
@@ -156,3 +182,82 @@ def test_cli_correct_on_cuda(cuda_device, tmp_path, monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [len(ln.split("\t")[0]) for ln in lines] == [5, 4]
     assert tbb.attention_block.launches == tbb.ffn_block.launches == 4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("hidden, heads", [(16, 2), (256, 4)])
+def test_train_kernels_match_plain(cuda_device, dtype, rate, hidden, heads):
+    """The four train kernels (forward y and z, backward dx and every
+    parameter gradient) against their plain versions, padded rows included;
+    H=256 takes the two-samples-per-hash dropout stream at the hidden sites,
+    and head_dim 64 the bf16 tensor-core attention core."""
+    dt = getattr(torch, dtype)
+    att_p, ffn_p = _train_params(_layer(hidden, heads).to(cuda_device))
+    pa, pf = tbt.pack_attention(att_p, dt), tbt.pack_ffn(ffn_p, dt)
+    rng = np.random.RandomState(7)
+    for b, s in ((3, 8), (2, 37), (2, 128)):
+        x = torch.tensor(rng.normal(0, 1, (b, s, hidden)).astype(np.float32))
+        dy = torch.tensor(rng.normal(0, 1, (b, s, hidden)).astype(np.float32))
+        x, dy = x.to(cuda_device, dt), dy.to(cuda_device, dt)
+        mask = torch.ones((b, s), dtype=torch.long, device=cuda_device)
+        mask[1, s // 2:] = 0
+        bias = tbert.attention_bias_from_mask(mask, dt).reshape(b, s).float()
+        seed = 12345 + s
+        cases = [
+            ("attention fwd",
+             tbt.attention_train_forward(x, pa, bias, seed, heads, 1e-12, rate, rate),
+             tbt.attention_train_forward_plain(x, pa, bias, seed, heads, 1e-12, rate,
+                                               rate))]
+        dx, g = tbt.attention_train_backward(x, dy, pa, bias, seed, heads, 1e-12,
+                                             rate, rate)
+        dx0, g0 = tbt.attention_train_backward_plain(x, dy, pa, bias, seed, heads,
+                                                     1e-12, rate, rate)
+        cases += [("attention dx", dx, dx0)] + [
+            (f"attention d{k}", g[k], g0[k]) for k in g0]
+        (y, z), (y0, z0) = (tbt.ffn_train_forward(x, pf, seed, 1e-12, rate),
+                            tbt.ffn_train_forward_plain(x, pf, seed, 1e-12, rate))
+        cases += [("ffn y", y, y0), ("ffn z", z, z0)]
+        dx, g = tbt.ffn_train_backward(x, z0, dy, pf, seed, 1e-12, rate)
+        dx0, g0 = tbt.ffn_train_backward_plain(x, z0, dy, pf, seed, 1e-12, rate)
+        cases += [("ffn dx", dx, dx0)] + [(f"ffn d{k}", g[k], g0[k]) for k in g0]
+        torch.cuda.synchronize()
+        for name, got, want in cases:
+            assert got.shape == want.shape and got.dtype == want.dtype, name
+            err = _rel_err(got, want)
+            assert err <= TRAIN_REL[dtype], (name, b, s, err)
+
+
+def test_train_blocks_count_launches_and_reach_the_parameters(cuda_device):
+    """The autograd Functions launch each train kernel once per call and
+    leave float32 gradients on the live parameters."""
+    layer = _layer(128, 2).to(cuda_device)
+    att_p, ffn_p = _train_params(layer)
+    x = torch.randn((2, 37, 128), device=cuda_device, requires_grad=True)
+    bias = torch.zeros((2, 37), device=cuda_device)
+    for fn in tbt.KERNEL_WRAPPERS:
+        fn.launches = 0
+    h = tbt.attention_block_train(x, dict(zip(tbt.ATTN_PARAMS, att_p)), bias, 3,
+                                  2, 1e-12, 0.1, 0.1)
+    y = tbt.ffn_block_train(h, dict(zip(tbt.FFN_PARAMS, ffn_p)), 3, 1e-12, 0.1)
+    y.square().sum().backward()
+    assert [fn.launches for fn in tbt.KERNEL_WRAPPERS] == [1, 1, 1, 1]
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in att_p + ffn_p)
+    assert x.grad.shape == x.shape
+
+
+def test_train_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    layer = _layer(16, 2).to(cuda_device)
+    att_p, ffn_p = _train_params(layer)
+    x = torch.randn((2, 8, 16), device=cuda_device)
+    pf = tbt.pack_ffn(ffn_p, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        tbt.ffn_train_forward(x.half(), pf, 0)
+    with pytest.raises(ValueError, match="w1: dtype"):
+        tbt.ffn_train_forward(x, tbt.pack_ffn(ffn_p, torch.bfloat16), 0)
+    with pytest.raises(ValueError, match="S <= 128"):
+        tbt.attention_train_forward(
+            torch.randn((1, 129, 16), device=cuda_device),
+            tbt.pack_attention(att_p, torch.float32),
+            torch.zeros((1, 129), device=cuda_device), 0, 2)

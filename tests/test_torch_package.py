@@ -25,6 +25,14 @@ def test_port_files_found():
     assert len(FILES) > 20
 
 
+@pytest.mark.parametrize("module", [
+    "ops/kernels/bert_block_train.py", "training/optim.py",
+    "training/trainer.py", "data/dataset.py", "text/glyphs.py",
+    "cli/common.py", "cli/train.py"])
+def test_scan_covers_the_training_modules(module):
+    assert ROOT / "realise_tpu_torch" / module in FILES
+
+
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = sorted(set(_imported_roots(path)) & FORBIDDEN)

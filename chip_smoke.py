@@ -26,10 +26,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    padded rows, dropout rates 0 and 0.1: y, z, dx and every parameter
    gradient, plus the masked-garbage check (padded rows of x set to 99, dy
    zero there, leave the valid rows' y and dx unchanged);
-7. train-kernel times at S=128, bf16, B=32 and 256, forward and backward
-   apart: each kernel, its plain version, the autograd of a library forward
-   the port never calls, and the bound (the backward's counting its
-   recompute);
+7. train-kernel times at S=128, bf16, B=32 and 256, dropout 0.1, forward
+   and backward apart: each kernel, its plain version, the autograd of a
+   library forward the port never calls, and the bound (the backward's
+   counting its recompute); at these shapes too every output of each kernel
+   is held against its plain version with phase 6's bf16 limit;
 8. training at full width: the published arch3 preset in bfloat16 at its
    published dropout (0.1), seeded random weights and glyphs, synthetic
    sentences featurized at bucket 128, ``realise_tpu_torch.training.Trainer``
@@ -74,14 +75,15 @@ PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM data sheet, dense
 TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # Training, kernel path vs plain path in float32 at dropout 0 (the two differ
 # in float32 summation order and in the scale's multiply vs divide): the loss
-# sum within 1e-5 relative, each gradient within 5e-3 of its largest |value|,
-# that largest value floored at 1e-4 of the largest over all tensors (the key
-# biases' gradient is zero in exact arithmetic, since the softmax ignores a
-# per-row shift, so both paths hold only rounding noise there). The glyph
-# convolutions are the loosest: their gradient passes the BatchNorm backward
-# over 4096 images, whose mean subtractions cancel most of each sum (6.6e-4
-# measured on an H100).
-PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 5e-3
+# sum within 1e-5 relative, each gradient within 1.5e-3 of its largest
+# |value|, that largest value floored at 1e-4 of the largest over all tensors
+# (the key biases' gradient is zero in exact arithmetic, since the softmax
+# ignores a per-row shift, so both paths hold only rounding noise there). The
+# glyph convolutions are the loosest: their gradient passes the BatchNorm
+# backward over 4096 images, whose mean subtractions cancel most of each sum
+# (6.51e-4 to 6.57e-4 over six runs on an H100); float32 products at TF32
+# precision would move it past the limit.
+PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 1.5e-3
 TRAIN_RATE = 0.1  # the published dropout of both sites
 
 
@@ -595,9 +597,19 @@ def time_train_kernels(device, gen, card):
                                             retain_graph=True)),
         }
         for name, (kern, plain, library) in cases.items():
-            err = max((k.float() - w.float()).abs().max().item()
-                      for k, w in zip(flat_outputs(kern()),
-                                      flat_outputs(plain())))
+            got, want = flat_outputs(kern()), flat_outputs(plain())
+            diffs = [(k.float() - w.float()).abs().max().item()
+                     for k, w in zip(got, want)]
+            err = max(diffs)
+            rel = max(d / max(w.float().abs().max().item(), 1e-30)
+                      for d, w in zip(diffs, want))
+            log(f"check {name} bf16 B={b} S=128 rate={r}: worst relative "
+                f"|kernel-plain| over {len(want)} outputs {rel:.3e} (tol "
+                f"{TRAIN_REL['bfloat16']:.3e})")
+            if not rel <= TRAIN_REL["bfloat16"]:
+                fail(f"{name} bf16 B={b} S=128 rate={r}: relative error "
+                     f"{rel:.3e} > {TRAIN_REL['bfloat16']}")
+            del got, want
             ms = time_ms(kern, flush)
             plain_ms = time_ms(plain, flush, iters=5, warmup=1)
             library_ms = time_ms(library, flush)

@@ -120,7 +120,7 @@ split_sum(const float* __restrict__ part, int splits, size_t n, float* __restric
 // K-splits of a weight-gradient GEMM (M x N output, K = B*S rows): the
 // count in {1, 2, 4, 8} that fills the card's GEMM slots (2 blocks per SM)
 // best, each split at least 256 rows long.
-int choose_splits(int M, int N, int K, int max_splits, int tile) {
+int choose_splits(int M, int N, int K, int tile) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -133,7 +133,7 @@ int choose_splits(int M, int N, int K, int max_splits, int tile) {
   const long tiles = (long)((M + tile - 1) / tile) * ((N + tile - 1) / tile);
   int best = 1;
   double best_fill = 0.0;
-  for (int s = 1; s <= max_splits && s <= MAX_SPLITS; s *= 2) {
+  for (int s = 1; s <= MAX_SPLITS; s *= 2) {
     if (s > 1 && K / s < 256) break;
     const long blocks = tiles * s;
     const double fill = (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
@@ -150,9 +150,9 @@ int choose_splits(int M, int N, int K, int max_splits, int tile) {
 // card better, summed in order.
 template <typename T>
 int weight_grad(const T* A, const T* B, int M, int N, int K, float* out,
-                float* wsplit, int max_splits, cudaStream_t st) {
+                float* wsplit, cudaStream_t st) {
   const int tile = sizeof(T) == 2 ? TC_BM : FS_BM;
-  const int splits = sizeof(T) == 2 ? choose_splits(M, N, K, max_splits, tile) : 1;
+  const int splits = sizeof(T) == 2 ? choose_splits(M, N, K, tile) : 1;
   if (splits == 1)
     return launch_gemm<EPI_STORE_F32, true, true>(A, B, M, N, K, M, N,
                                                   epi(nullptr, nullptr, out), st);
@@ -419,7 +419,7 @@ int attention_bwd_impl(const T* x, const T* dy, const T* wqkv, const float* bqkv
                        T* qkv, T* ctx, float* z32, float* dz, float* dnorm, T* dattn,
                        T* dctx, T* dqkv, float* part, float* wsplit, T* dx, float* dwqkv,
                        float* dbqkv, float* dwo, float* dbo, float* dg, float* dbeta, int B,
-                       int S, int H, int nh, int max_splits, float scale, float eps,
+                       int S, int H, int nh, float scale, float eps,
                        const RtDropout& d, cudaStream_t st) {
   const int M = B * S;
   if (!attention_shape_ok(S, H, nh)) return (int)cudaErrorInvalidValue;
@@ -441,8 +441,8 @@ int attention_bwd_impl(const T* x, const T* dy, const T* wqkv, const float* bqkv
                                  st));
   RT_TRY(colsum<T>(dqkv, M, 3 * H, part, dbqkv, st));
   // Weight gradients over the B*S rows, then dx = dz + dqkv . Wqkv.
-  RT_TRY(weight_grad<T>(dqkv, x, 3 * H, H, M, dwqkv, wsplit, max_splits, st));
-  RT_TRY(weight_grad<T>(dattn, ctx, H, H, M, dwo, wsplit, max_splits, st));
+  RT_TRY(weight_grad<T>(dqkv, x, 3 * H, H, M, dwqkv, wsplit, st));
+  RT_TRY(weight_grad<T>(dattn, ctx, H, H, M, dwo, wsplit, st));
   return launch_gemm<EPI_ADD_F32_ROUND, false, true>(dqkv, wqkv, M, H, 3 * H, 3 * H, H,
                                                      epi(nullptr, dz, dx), st);
 }
@@ -463,7 +463,7 @@ int ffn_bwd_impl(const T* x, const T* z, const T* dy, const T* w1, const float* 
                  const T* w2, const float* g, float* dz, float* dnorm, float* dout32,
                  T* dout, T* t1, T* inter, T* dt1, float* part, float* wsplit, T* dx,
                  float* dw1, float* db1, float* dw2, float* db2, float* dg, float* dbeta,
-                 int M, int S, int H, int I, int max_splits, float eps, const RtDropout& d,
+                 int M, int S, int H, int I, float eps, const RtDropout& d,
                  cudaStream_t st) {
   const Drop dh = hidden_drop(d, SITE_FFN_OUT);
   // LayerNorm backward from the rounded z, the output-dropout replay.
@@ -474,12 +474,12 @@ int ffn_bwd_impl(const T* x, const T* z, const T* dy, const T* w1, const float* 
   // t1 = round(x . W1) + b1 and gelu(t1) recomputed; dW2 = dout^T . gelu(t1).
   RT_TRY(launch_gemm<EPI_BIAS_T1_GELU>(x, w1, M, I, H, H, H, epi(b1, nullptr, t1, inter),
                                        st));
-  RT_TRY(weight_grad<T>(dout, inter, H, I, M, dw2, wsplit, max_splits, st));
+  RT_TRY(weight_grad<T>(dout, inter, H, I, M, dw2, wsplit, st));
   // dt1 = (dout . W2) * gelu'(t1); db1, dW1 = dt1^T . x; dx = dz + dt1 . W1.
   RT_TRY(launch_gemm<EPI_GELU_GRAD, false, true>(dout, w2, M, I, H, H, I,
                                                  epi(nullptr, t1, dt1), st));
   RT_TRY(colsum<T>(dt1, M, I, part, db1, st));
-  RT_TRY(weight_grad<T>(dt1, x, I, H, M, dw1, wsplit, max_splits, st));
+  RT_TRY(weight_grad<T>(dt1, x, I, H, M, dw1, wsplit, st));
   return launch_gemm<EPI_ADD_F32_ROUND, false, true>(dt1, w1, M, H, I, I, H,
                                                      epi(nullptr, dz, dx), st);
 }
@@ -493,6 +493,17 @@ int ffn_bwd_impl(const T* x, const T* z, const T* dy, const T* w1, const float* 
     if (dtype == 1) { using T = bf16; return impl<T>(__VA_ARGS__); }  \
     return (int)cudaErrorInvalidValue;                                \
   } while (0)
+
+// Float counts of the caller's scratch buffers, so that the blocking lives
+// here alone: the column sums' partials over M rows of N columns, and the
+// weight-gradient GEMMs' K-split partials of an M x N gradient.
+extern "C" long long rt_train_colsum_scratch(int M, int N) {
+  return (long long)((M + CS_ROWS - 1) / CS_ROWS) * N;
+}
+
+extern "C" long long rt_train_split_scratch(int M, int N) {
+  return (long long)MAX_SPLITS * M * N;
+}
 
 #define F(p) static_cast<const float*>(p)
 #define W(p) static_cast<float*>(p)
@@ -515,13 +526,13 @@ extern "C" int rt_attention_train_bwd(
     const void* bo, const void* g, const void* mask, void* qkv, void* ctx, void* z32,
     void* dz, void* dnorm, void* dattn, void* dctx, void* dqkv, void* part, void* wsplit,
     void* dx, void* dwqkv, void* dbqkv, void* dwo, void* dbo, void* dg, void* dbeta, int B,
-    int S, int H, int nh, int max_splits, float scale, float eps, const RtDropout* d,
+    int S, int H, int nh, float scale, float eps, const RtDropout* d,
     int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RT_DISPATCH(attention_bwd_impl, CT(x), CT(dy), CT(wqkv), F(bqkv), CT(wo), F(bo), F(g),
               F(mask), TT(qkv), TT(ctx), W(z32), W(dz), W(dnorm), TT(dattn), TT(dctx),
               TT(dqkv), W(part), W(wsplit), TT(dx), W(dwqkv), W(dbqkv), W(dwo), W(dbo),
-              W(dg), W(dbeta), B, S, H, nh, max_splits, scale, eps, *d, st);
+              W(dg), W(dbeta), B, S, H, nh, scale, eps, *d, st);
 }
 
 extern "C" int rt_ffn_train_fwd(const void* x, const void* w1, const void* b1,
@@ -539,11 +550,11 @@ extern "C" int rt_ffn_train_bwd(const void* x, const void* z, const void* dy, co
                                 void* dnorm, void* dout32, void* dout, void* t1, void* inter,
                                 void* dt1, void* part, void* wsplit, void* dx, void* dw1,
                                 void* db1, void* dw2, void* db2, void* dg, void* dbeta,
-                                int M, int S, int H, int I, int max_splits, float eps,
+                                int M, int S, int H, int I, float eps,
                                 const RtDropout* d, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RT_DISPATCH(ffn_bwd_impl, CT(x), CT(z), CT(dy), CT(w1), F(b1), CT(w2), F(g), W(dz),
               W(dnorm), W(dout32), TT(dout), TT(t1), TT(inter), TT(dt1), W(part), W(wsplit),
-              TT(dx), W(dw1), W(db1), W(dw2), W(db2), W(dg), W(dbeta), M, S, H, I,
-              max_splits, eps, *d, st);
+              TT(dx), W(dw1), W(db1), W(dw2), W(db2), W(dg), W(dbeta), M, S, H, I, eps,
+              *d, st);
 }

@@ -191,7 +191,9 @@ class Realise(nn.Module):
 
         ``batch``: src_idx, masks (B, S), and pho_idx (B, S, P) + pho_lens
         (B, S) unless ``tables`` holds the precomputed 'pho' table; with
-        tgt_idx and loss_masks (B, S) the loss sum and count come too.
+        tgt_idx and loss_masks (B, S) the loss sum and count come too, and
+        in training mode they come instead of the logits (the loss reads the
+        unbiased logits; the biased (B, S, V) tensor is not built).
         ``tables``: {'res', 'pho'} (V, H) from :func:`precompute_inference_tables`
         (eval mode only). ``use_kernels``: run every encoder layer through the
         fused block kernels (ops/kernels/bert_block.py in eval mode,
@@ -242,10 +244,13 @@ class Realise(nn.Module):
         word = self.bert.embeddings.word_embeddings.weight
         bias = self.classifier.bias
         logits_nb = torch.matmul(hidden, word.to(dtype).t())
-        out = {"logits": logits_nb + bias.to(dtype)}
+        has_loss = "tgt_idx" in batch and "loss_masks" in batch
+        out = {}
+        if not (self.training and has_loss):
+            out["logits"] = logits_nb + bias.to(dtype)
         if return_gates:
             out["gates"] = gates
-        if "tgt_idx" in batch and "loss_masks" in batch:
+        if has_loss:
             out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
                 logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
         return out

@@ -60,10 +60,6 @@ ATTN_PARAMS = ("q_weight", "q_bias", "k_weight", "k_bias", "v_weight",
 FFN_PARAMS = ("w1", "b1", "w2", "b2", "ln_weight", "ln_bias")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Rows per partial sum of the two-pass column reductions (csrc CS_ROWS) and
-# the most K-splits a weight-gradient GEMM takes (csrc MAX_SPLITS).
-_COLSUM_ROWS = 256
-_MAX_SPLITS = 8
 _LIB = None
 
 
@@ -295,12 +291,14 @@ def _lib() -> ctypes.CDLL:
         lib.rt_attention_train_fwd.argtypes = (
             [p] * 12 + [i] * 4 + [f, f, d, i, p])
         lib.rt_attention_train_bwd.argtypes = (
-            [p] * 25 + [i] * 5 + [f, f, d, i, p])
+            [p] * 25 + [i] * 4 + [f, f, d, i, p])
         lib.rt_ffn_train_fwd.argtypes = [p] * 11 + [i] * 4 + [f, d, i, p]
-        lib.rt_ffn_train_bwd.argtypes = [p] * 23 + [i] * 5 + [f, d, i, p]
+        lib.rt_ffn_train_bwd.argtypes = [p] * 23 + [i] * 4 + [f, d, i, p]
         for fn in (lib.rt_attention_train_fwd, lib.rt_attention_train_bwd,
                    lib.rt_ffn_train_fwd, lib.rt_ffn_train_bwd):
             fn.restype = i
+        for fn in (lib.rt_train_colsum_scratch, lib.rt_train_split_scratch):
+            fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
         _LIB = lib
     return _LIB
 
@@ -350,7 +348,13 @@ def _check_ffn(x, p):
 
 def _partials(m: int, n: int, device) -> torch.Tensor:
     """Scratch of the two-pass column sums over ``m`` rows, ``n`` columns."""
-    return torch.empty(((m + _COLSUM_ROWS - 1) // _COLSUM_ROWS) * n,
+    return torch.empty(_lib().rt_train_colsum_scratch(m, n),
+                       dtype=torch.float32, device=device)
+
+
+def _splits(m: int, n: int, device) -> torch.Tensor:
+    """Scratch of the K-split partials of an ``m`` x ``n`` weight gradient."""
+    return torch.empty(_lib().rt_train_split_scratch(m, n),
                        dtype=torch.float32, device=device)
 
 
@@ -392,8 +396,7 @@ def attention_train_backward(x, dy, p, mask_bias, seed, num_heads,
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
     scratch = [e(m, 3 * h), e(m, h), e(m, h, dtype=f32), e(m, h, dtype=f32),
                e(m, h, dtype=f32), e(m, h), e(m, h), e(m, 3 * h),
-               _partials(m, 3 * h, dev),
-               e(_MAX_SPLITS * 3 * h * h, dtype=f32)]
+               _partials(m, 3 * h, dev), _splits(3 * h, h, dev)]
     dx = torch.empty_like(x)
     grads = {"qkv_weight": e(3 * h, h, dtype=f32),
              "qkv_bias": e(3 * h, dtype=f32),
@@ -403,7 +406,7 @@ def attention_train_backward(x, dy, p, mask_bias, seed, num_heads,
          *_ptrs(x, dy, p["qkv_weight"], p["qkv_bias"], p["out_weight"],
                 p["out_bias"], p["ln_weight"], mask, *scratch, dx,
                 *grads.values()),
-         b, s, h, num_heads, _MAX_SPLITS, 1.0 / (h // num_heads) ** 0.5, eps,
+         b, s, h, num_heads, 1.0 / (h // num_heads) ** 0.5, eps,
          ctypes.byref(_dropout_args(seed, p_rate, h_rate)), _DTYPE_CODE[dt],
          _stream(dev))
     attention_train_backward.launches += 1
@@ -443,8 +446,7 @@ def ffn_train_backward(x, z, dy, p, seed, eps=1e-12, h_rate=0.0):
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
     scratch = [e(m, h, dtype=f32), e(m, h, dtype=f32), e(m, h, dtype=f32),
                e(m, h), e(m, i), e(m, i), e(m, i),
-               _partials(m, max(i, h), dev),
-               e(_MAX_SPLITS * i * h, dtype=f32)]
+               _partials(m, max(i, h), dev), _splits(i, h, dev)]
     dx = torch.empty_like(x)
     grads = {"w1": e(i, h, dtype=f32), "b1": e(i, dtype=f32),
              "w2": e(h, i, dtype=f32), "b2": e(h, dtype=f32),
@@ -452,7 +454,7 @@ def ffn_train_backward(x, z, dy, p, seed, eps=1e-12, h_rate=0.0):
     _run("rt_ffn_train_bwd",
          *_ptrs(x, z, dy, p["w1"], p["b1"], p["w2"], p["ln_weight"],
                 *scratch, dx, *grads.values()),
-         m, s, h, i, _MAX_SPLITS, eps,
+         m, s, h, i, eps,
          ctypes.byref(_dropout_args(seed, 0.0, h_rate)), _DTYPE_CODE[dt],
          _stream(dev))
     ffn_train_backward.launches += 1

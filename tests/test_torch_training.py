@@ -17,6 +17,7 @@ from realise_tpu.config import PHO2_VOCAB_SIZE, config_for
 from realise_tpu.models.realise import apply_realise, init_realise
 from realise_tpu.training.optim import decay_mask as jax_decay_mask
 from realise_tpu.training.optim import linear_warmup_schedule as jax_schedule
+from realise_tpu.training.optim import make_tx as jax_make_tx
 from realise_tpu.training.trainer import Trainer as JaxTrainer
 from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.models import realise as trealise
@@ -102,6 +103,7 @@ def test_training_forward_matches_apply_realise(jax_model, jax_step, kernels):
     model = _port_model(params, state).train()
     out = model(_t(batch), use_kernels=kernels,
                 generator=torch.Generator().manual_seed(1))
+    assert "logits" not in out  # training mode builds only the loss
     assert out["loss_count"].item() == float(lc)
     np.testing.assert_allclose(out["loss_sum"].item(), float(ls), rtol=1e-6)
     (out["loss_sum"] / out["loss_count"]).backward()
@@ -203,6 +205,58 @@ def test_clip_by_global_norm_matches_optax():
         toptim.clip_by_global_norm(got, max_norm)
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6)
+
+
+@pytest.mark.parametrize("weight_decay", [0.5, 0.0])
+def test_trainer_update_matches_optax_adamw(jax_model, weight_decay):
+    """Two optimizer updates of the Trainer on the same given gradients as
+    the JAX package's optax chain (clip at 1.0, then AdamW with its decay
+    mask), lr 1e-3. The gradients are equal on both sides, so Adam's sign
+    sensitivity does not arise and the parameters agree to float rounding:
+    rtol 4e-7 (3 float32 ulps of each value) plus atol 1e-7, 1e-4 of one
+    update (optax takes Adam's bias corrections in float32, where
+    1 - 0.999**2 keeps ~3e-5 relative error; torch in float64). At weight
+    decay 0.5 a decayed parameter moves by lr·wd·|p| = 5e-4·|p| per step;
+    each decayed tensor is checked to move by more than 10x the tolerance
+    against optax without decay, so decay that is dropped, misgrouped or
+    folded into the gradient fails."""
+    params, state = jax_model
+    rng = np.random.RandomState(7)
+    steps = [jax.tree.map(lambda x: rng.normal(0, 0.1, np.shape(x)).astype(
+        np.float32), params) for _ in range(2)]
+    txs = [jax_make_tx(params, learning_rate=1e-3, weight_decay=wd,
+                       max_grad_norm=1.0) for wd in (weight_decay, 0.0)]
+    jps = [jax.tree.map(jnp.asarray, params)] * 2
+    opt_states = [tx.init(jps[0]) for tx in txs]
+    tt = Trainer(PCFG, _port_model(params, state), learning_rate=1e-3,
+                 weight_decay=weight_decay, max_grad_norm=1.0, device="cpu",
+                 use_kernels=False)
+    plist = dict(tt.model.named_parameters())
+    for g in steps:
+        for i, tx in enumerate(txs):
+            updates, opt_states[i] = tx.update(jax.tree.map(jnp.asarray, g),
+                                               opt_states[i], jps[i])
+            jps[i] = optax.apply_updates(jps[i], updates)
+        tgrads = state_dict_from_jax(g, state, PCFG)
+        for name, p in plist.items():
+            p.grad = tgrads[name].clone()
+        norm = toptim.clip_by_global_norm([p.grad for p in plist.values()],
+                                          tt.max_grad_norm)
+        assert norm.item() > 1.0  # the clip scales these gradients
+        tt.optimizer.step()
+    want, want_no_decay = (
+        state_dict_from_jax(jax.tree.map(np.asarray, jp), state, PCFG)
+        for jp in jps)
+    mask = dict(toptim.decay_mask(plist.items()))
+    for name, p in plist.items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   rtol=4e-7, atol=1e-7, err_msg=name)
+        decay = np.abs(want[name].numpy() - want_no_decay[name].numpy()).max()
+        if weight_decay and mask[name]:
+            assert decay > 10 * (4e-7 * np.abs(want[name].numpy()).max()
+                                 + 1e-7), name
+        else:
+            assert decay == 0.0, name
 
 
 # ---------------------------------------------------------------- trainer

@@ -30,7 +30,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and backward apart: each kernel, its plain version, the autograd of a
    library forward the port never calls, and the bound (the backward's
    counting its recompute); at these shapes too every output of each kernel
-   is held against its plain version with phase 6's bf16 limit;
+   is held against its plain version with phase 6's bf16 limit, two calls of
+   each backward must give the same bits, and the B=256 profile of each
+   backward must show its Hopper GEMM (``gemm_sm90``), the attention
+   backward its tensor-core core, and no ``gemm_bf16_tc`` product but the
+   ones that replay the forward; then the backward GEMM alone at its two
+   layouts at the B=256 training shapes (dWqkv, FFN dx): time, TFLOP/s and
+   ``torch.matmul``'s time on the same inputs;
 8. training at full width: the published arch3 preset in bfloat16 at its
    published dropout (0.1), seeded random weights and glyphs, synthetic
    sentences featurized at bucket 128, ``realise_tpu_torch.training.Trainer``
@@ -48,6 +54,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -85,6 +92,17 @@ TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # precision would move it past the limit.
 PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 1.5e-3
 TRAIN_RATE = 0.1  # the published dropout of both sites
+# The gemm_bf16_tc products a bf16 train backward still runs (by epilogue
+# mode, bert_block_common.cuh): the ones that replay the forward, so that
+# the replayed q/k/v, z and t1 are the forward's bit for bit (EPI_BIAS and
+# EPI_RESID_ROUND_DROP in the attention backward, EPI_BIAS_T1_GELU in the
+# FFN's). Every other product takes gemm_sm90.
+RECOMPUTE_EPI = {"attention_train_backward": {0, 4}, "ffn_train_backward": {9}}
+# The backward GEMM alone against an f32 product of the same bf16 inputs,
+# relative to the largest |value|: a float32 weight gradient differs in the
+# order of its sums only; a bf16 data gradient by one rounding, 2^-8 of a
+# value, allowed twice.
+GEMM_REL = {True: 1e-4, False: 2.0 ** -7}
 
 
 def log(msg: str) -> None:
@@ -545,6 +563,73 @@ def flat_outputs(out):
     return list(out)
 
 
+def check_deterministic(name, b, kern):
+    """Two calls of a train backward give the same bits (no atomics; split-K
+    partials summed in a fixed order)."""
+    import torch
+
+    first, second = flat_outputs(kern()), flat_outputs(kern())
+    same = all(torch.equal(x, y) for x, y in zip(first, second))
+    log(f"check {name} bf16 B={b}: two calls bitwise equal over "
+        f"{len(first)} outputs: {same}")
+    if not same:
+        fail(f"{name} bf16 B={b}: two calls differ")
+
+
+def check_backward_profile(name, parts):
+    """The B=256 profile of a bf16 train backward shows its Hopper GEMM, the
+    tensor-core attention core, and no other mma.sync product than the
+    forward replays."""
+    names = [k for _, k in parts]
+    if not names:
+        fail(f"{name}: the profiler recorded no device time")
+    stale = [k for k in names if re.search(r"attention_bwd_core<", k)]
+    for k in names:
+        mode = re.search(r"gemm_bf16_tc<(\d+)", k)
+        if mode and int(mode.group(1)) not in RECOMPUTE_EPI[name]:
+            stale.append(k)
+    missing = ["gemm_sm90<"] + (["attention_bwd_core_tc<"]
+                                if name == "attention_train_backward" else [])
+    missing = [m for m in missing if not any(m in k for k in names)]
+    log(f"check {name} B=256 profile: old routes {len(stale)}, missing "
+        f"{missing or 'none'}")
+    if stale or missing:
+        fail(f"{name}: profile shows {stale} and lacks {missing}")
+
+
+def time_backward_gemm(device, gen, card):
+    """The train backward's Hopper GEMM alone at two products of the B=256,
+    S=128 training shapes: dWqkv = dqkvᵀ·x (both operands MN-major, float32
+    split-K partials) and the FFN's dx = dt1·W1 (A K-major, bf16 out)."""
+    import torch
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    m = 256 * 128
+    for label, trans, shape_a, shape_b in (
+            ("dWqkv = dqkv^T.x", True, (m, 3 * H), (m, H)),
+            ("FFN dx = dt1.W1", False, (m, INTER), (INTER, H))):
+        a = torch.randn(shape_a, generator=gen).to(device, torch.bfloat16)
+        b = torch.randn(shape_b, generator=gen).to(device, torch.bfloat16)
+        lhs = a.t() if trans else a
+        rows, depth, cols = lhs.shape[0], lhs.shape[1], b.shape[1]
+        got = tbt.backward_gemm(a, b, trans).float()
+        want = lhs.float() @ b.float()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        del got, want
+        ms = time_ms(lambda: tbt.backward_gemm(a, b, trans), flush)
+        lib_ms = time_ms(lambda: torch.matmul(lhs, b), flush)
+        tflops = 2 * rows * depth * cols / ms / 1e9
+        log(f"gemm_sm90 {label} (M={rows}, N={cols}, K={depth}, A "
+            f"{'MN' if trans else 'K'}-major, B MN-major): {ms:.4f} ms, "
+            f"{tflops:.1f} TFLOP/s ({tflops / (PEAK_BF16_FLOPS / 1e12):.1%} of "
+            f"the bf16 peak), torch.matmul {lib_ms:.4f} ms, relative "
+            f"|gemm - f32 product| {err:.2e} (tol {GEMM_REL[trans]:.2e}) [{card}]")
+        if not err <= GEMM_REL[trans]:
+            fail(f"gemm_sm90 {label}: relative error {err:.3e}")
+
+
 def time_train_kernels(device, gen, card):
     """Phase 7: {kernel: row at B=32}; rows at B=32 and 256 printed."""
     import torch
@@ -619,10 +704,14 @@ def time_train_kernels(device, gen, card):
                 f"{bound_ms:.4f} ms ({bound_by}; kernel at "
                 f"{bound_ms / ms:.1%} of it), max|kernel-plain| {err:.3e} "
                 f"[{card}]")
+            if name in RECOMPUTE_EPI:
+                check_deterministic(name, b, kern)
             if b == 256:
                 parts = kernel_breakdown(kern, iters=3)
                 for part_ms, kname in parts[:8]:
                     log(f"  profile {name} B={b}: {part_ms:.4f} ms {kname[:90]}")
+                if name in RECOMPUTE_EPI:
+                    check_backward_profile(name, parts)
             if b == 32:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
@@ -808,6 +897,7 @@ def main() -> int:
     launches = serve(device, cfg, gen)
     worst_train = check_train_kernels(device, gen)
     rows.update(time_train_kernels(device, gen, card))
+    time_backward_gemm(device, gen, card)
     launches.update(train(device, cfg, card))
     check_train_paths(device, cfg)
 

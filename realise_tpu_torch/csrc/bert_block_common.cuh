@@ -9,7 +9,9 @@
 //   ("B[k * ldb + n]"). The transposed layouts serve the backward: dx = dy.W
 //   reads W n-contiguous, a weight gradient dW = dY^T.X reads both operands
 //   row by row over the B*S rows. blockIdx.z splits K (each split writes
-//   its own float32 partial; a second pass sums them in a fixed order).
+//   its own float32 partial; a second pass sums them in a fixed order). In
+//   bf16 the backward takes them only for operands TMA cannot address;
+//   gemm_sm90.cuh runs the rest.
 // * attention_core / attention_core_tc: softmax(q.k^T * scale + mask) . v
 //   per (example, head), reading heads in the (B, S, 3H) layout, with the
 //   training path's dropout on the probabilities.
@@ -330,12 +332,60 @@ __device__ __forceinline__ void tc_load_stage(uint16_t* base, const bf16* A, con
   }
 }
 
-// Two adjacent outputs (columns c, c + 1 of row r); a vector store for the
-// forward modes when both exist and N is even.
+// Two adjacent outputs (columns c, c + 1 of row r) take the vector path when
+// both exist and N is even.
+__device__ __forceinline__ bool epi_pair(int c, int N) { return c + 1 < N && (N & 1) == 0; }
+
+// The residual pair a data-gradient epilogue reads at (r, c), c + 1 on the
+// vector path (EPI_ADD_F32_ROUND: f32 dz; EPI_GELU_GRAD: t1), zeros for the
+// other modes: loaded apart from its use, so that a caller can start many
+// loads before it needs the first.
 template <int EPI>
-__device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M,
-                                           int N, float a0, float a1) {
+__device__ __forceinline__ float2 epi_resid2(const EpiArgs& e, int r, int c, int M, int N) {
+  if ((EPI == EPI_ADD_F32_ROUND || EPI == EPI_GELU_GRAD) && r < M && epi_pair(c, N)) {
+    const size_t idx = (size_t)r * N + c;
+    if (EPI == EPI_ADD_F32_ROUND)
+      return *reinterpret_cast<const float2*>(static_cast<const float*>(e.resid) + idx);
+    return __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(e.resid) + idx));
+  }
+  return make_float2(0.f, 0.f);
+}
+
+// Columns c, c + 1 of row r, `res` being epi_resid2 at the same place; vector
+// loads and stores on the pair path for every mode but the dropout ones
+// (whose keep multiplier is per element), with epi_store's arithmetic.
+template <int EPI>
+__device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M, int N,
+                                           float a0, float a1, float2 res) {
   if (r >= M) return;
+  if (EPI >= EPI_STORE_F32 && epi_pair(c, N)) {
+    const size_t idx = (size_t)r * N + c;
+    __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(e.out) + idx);
+    if (EPI == EPI_STORE_F32) {
+      *reinterpret_cast<float2*>(static_cast<float*>(e.out) + idx) = make_float2(a0, a1);
+    } else if (EPI == EPI_ROUND) {
+      *out = __floats2bfloat162_rn(a0, a1);
+    } else if (EPI == EPI_ADD_F32_ROUND) {
+      *out = __floats2bfloat162_rn(res.x + a0, res.y + a1);
+    } else if (EPI == EPI_GELU_GRAD) {
+      const float t0 = res.x, t1 = res.y;
+      const float cdf0 = 0.5f * (1.0f + erff(t0 * INV_SQRT2));
+      const float cdf1 = 0.5f * (1.0f + erff(t1 * INV_SQRT2));
+      const float phi0 = INV_SQRT2PI * expf(-0.5f * t0 * t0);
+      const float phi1 = INV_SQRT2PI * expf(-0.5f * t1 * t1);
+      *out = __floats2bfloat162_rn(a0 * (cdf0 + t0 * phi0), a1 * (cdf1 + t1 * phi1));
+    } else {  // EPI_BIAS_T1_GELU
+      const float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(e.bias[c]));
+      const float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(e.bias[c + 1]));
+      const float cdf0 = 0.5f * (1.0f + erff(v0 * INV_SQRT2));
+      const float cdf1 = 0.5f * (1.0f + erff(v1 * INV_SQRT2));
+      *out = __floats2bfloat162_rn(v0, v1);
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(e.out2) + idx) =
+          __floats2bfloat162_rn(v0 * cdf0, v1 * cdf1);
+    }
+    return;
+  }
   if (EPI <= EPI_RESID_F32 && c + 1 < N && (N & 1) == 0) {
     const size_t idx = (size_t)r * N + c;
     const float b0 = e.bias[c], b1 = e.bias[c + 1];
@@ -365,6 +415,12 @@ __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M
   }
   if (c < N) epi_store<bf16, EPI>(e, r, c, N, a0);
   if (c + 1 < N) epi_store<bf16, EPI>(e, r, c + 1, N, a1);
+}
+
+template <int EPI>
+__device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M, int N,
+                                           float a0, float a1) {
+  epi_store2<EPI>(e, r, c, M, N, a0, a1, epi_resid2<EPI>(e, r, c, M, N));
 }
 
 template <int EPI, bool A_T, bool B_T>

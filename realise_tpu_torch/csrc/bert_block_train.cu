@@ -17,13 +17,20 @@
 // hundred MB of traffic: operations, on the bf16 tensor cores. The attention
 // core is ~4% of the operations.
 //
-// What the design does about it, first version:
-//   * every product runs in the shared mma.sync GEMM (bert_block_common.cuh)
-//     with its epilogue fused: bias, gelu, dropout, residual, gelu' and the
-//     residual dz of dx. The backward's data gradients (dx = dY.W) read W
-//     n-contiguous and the weight gradients (dW = dY^T.X over the B*S rows)
-//     read both operands transposed, with ldmatrix.trans, so no transpose
-//     is ever written to device memory.
+// What the design does about it:
+//   * the backward-only products (dctx, dt1, dx, and the weight gradients)
+//     run in gemm_sm90.cuh: wgmma on TMA-fed shared memory in a persistent
+//     warp-specialised block, with their epilogues fused (the residual dz of
+//     dx, gelu'). The data gradients (dx = dY.W) read W n-contiguous and the
+//     weight gradients (dW = dY^T.X over the B*S rows) read both operands
+//     m- and n-contiguous, as wgmma's MN-major operands, so no transpose is
+//     ever written to device memory. Operands TMA cannot address (bases not
+//     16-byte aligned, row strides not a multiple of 8) take the mma.sync
+//     GEMM of bert_block_common.cuh instead, decided from the shape before
+//     the launch; float32 takes the CUDA-core GEMM.
+//   * the products that replay the forward (q/k/v, the out-projection and
+//     t1) run in the forward kernels' mma.sync GEMM (gemm_bf16_tc), so that
+//     the replayed values are the forward's bit for bit.
 //   * the TPU kernels carry weight gradients in a grid-invariant accumulator
 //     from one sequential grid step to the next; here blocks run in no
 //     order, so a weight gradient is one GEMM over all rows, split along
@@ -34,14 +41,15 @@
 //     forward; the backward recomputes q/k/v, the probabilities, ctx and
 //     the pre-LN z (attention) or t1 (FFN) in the same kernels as the
 //     forward, so the replayed values are the forward's.
-//   * the attention backward core runs on the CUDA cores in f32, one block
-//     per (example, head) with K, V (then Q, dctx), the dropped
-//     probabilities and the softmax gradient of the whole head in shared
-//     memory (~200 KB at S = 128, head_dim 64).
-// Not yet: the attention backward on the tensor cores, TMA, wgmma,
-// persistence, fusing the LayerNorm backward into the GEMM epilogues.
+//   * the attention backward core of bf16 at head_dim 64 runs on the tensor
+//     cores (attention_bwd_core_tc, below): ~10.5 MFLOP of mma.sync per
+//     (example, head), against the f32 CUDA-core loops of
+//     attention_bwd_core, which stays for float32 and other head dims.
+// Not yet: the forward products on wgmma, fusing the LayerNorm backward
+// into the GEMM epilogues.
 
 #include "bert_block_common.cuh"
+#include "gemm_sm90.cuh"
 
 // The caller's dropout arguments (realise_tpu_torch/ops/kernels/
 // bert_block_train.py _Dropout): the layer's seed, and for the probability
@@ -117,23 +125,20 @@ split_sum(const float* __restrict__ part, int splits, size_t n, float* __restric
   out[i] = s;
 }
 
-// K-splits of a weight-gradient GEMM (M x N output, K = B*S rows): the
-// count in {1, 2, 4, 8} that fills the card's GEMM slots (2 blocks per SM)
-// best, each split at least 256 rows long.
-int choose_splits(int M, int N, int K, int tile) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        sms <= 0)
-      sms = 132;
-  }
-  const int slots = 2 * sms;
-  const long tiles = (long)((M + tile - 1) / tile) * ((N + tile - 1) / tile);
+#define RT_TRY(...)            \
+  do {                         \
+    int e_ = (__VA_ARGS__);    \
+    if (e_) return e_;         \
+  } while (0)
+
+// K-splits of a weight-gradient GEMM of `tiles` output tiles over K rows,
+// on a card that runs `slots` such blocks at once: the count in 1 ..
+// MAX_SPLITS (the fewest among equals) whose last wave fills the slots best,
+// each split at least 256 rows long.
+int choose_splits(long tiles, int K, int slots) {
   int best = 1;
   double best_fill = 0.0;
-  for (int s = 1; s <= MAX_SPLITS; s *= 2) {
+  for (int s = 1; s <= MAX_SPLITS; ++s) {
     if (s > 1 && K / s < 256) break;
     const long blocks = tiles * s;
     const double fill = (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
@@ -147,25 +152,49 @@ int choose_splits(int M, int N, int K, int tile) {
 
 // dW (M x N) = A^T . B over K rows: A (K, M) and B (K, N) row-major, both
 // read transposed; split along K into `wsplit` partials when that fills the
-// card better, summed in order.
+// card better, summed in order. bf16 takes gemm_sm90 (one persistent
+// 128 x 256 block per SM) where TMA can address the operands, else
+// gemm_bf16_tc (128 x 128, two blocks per SM); float32 the CUDA-core GEMM.
 template <typename T>
 int weight_grad(const T* A, const T* B, int M, int N, int K, float* out,
                 float* wsplit, cudaStream_t st) {
-  const int tile = sizeof(T) == 2 ? TC_BM : FS_BM;
-  const int splits = sizeof(T) == 2 ? choose_splits(M, N, K, tile) : 1;
-  if (splits == 1)
+  if constexpr (sizeof(T) == 4) {
     return launch_gemm<EPI_STORE_F32, true, true>(A, B, M, N, K, M, N,
                                                   epi(nullptr, nullptr, out), st);
-  int err = launch_gemm<EPI_STORE_F32, true, true>(A, B, M, N, K, M, N,
-                                                   epi(nullptr, nullptr, wsplit), st, splits);
-  if (err) return err;
-  // The launcher rounds the split length up to whole k-tiles; count the
-  // partials it wrote.
-  const int k_chunk = ((K + splits - 1) / splits + TC_BK - 1) / TC_BK * TC_BK;
-  const int used = (K + k_chunk - 1) / k_chunk;
-  const size_t n = (size_t)M * N;
-  split_sum<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(wsplit, used, n, out);
-  return (int)cudaGetLastError();
+  } else {
+    const bool sm90 = sm90_gemm_ok(A, B, M, N);
+    const int bm = sm90 ? G9_BM : TC_BM, bn = sm90 ? G9_BN : TC_BN;
+    const long tiles = (long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
+    const int splits = choose_splits(tiles, K, sm90 ? sm_count() : 2 * sm_count());
+    const EpiArgs e = epi(nullptr, nullptr, splits == 1 ? out : wsplit);
+    RT_TRY(sm90 ? launch_gemm_sm90<EPI_STORE_F32, true>(A, B, M, N, K, M, N, e, st, splits)
+                : launch_gemm<EPI_STORE_F32, true, true>(A, B, M, N, K, M, N, e, st, splits));
+    if (splits == 1) return 0;
+    // The launchers round the split length up to whole k-tiles; count the
+    // partials they wrote.
+    const int k_chunk = split_chunk(K, splits, sm90 ? G9_BK : TC_BK);
+    const int used = (K + k_chunk - 1) / k_chunk;
+    const size_t n = (size_t)M * N;
+    split_sum<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(wsplit, used, n, out);
+    return (int)cudaGetLastError();
+  }
+}
+
+// A data-gradient product C (M, N) = A . B, A k-contiguous and B
+// n-contiguous: gemm_sm90 for bf16 operands TMA can address, gemm_bf16_tc
+// for other bf16 operands, the CUDA-core GEMM for float32 (see the top).
+template <int EPI>
+int data_grad(const bf16* A, const bf16* B, int M, int N, int K, int lda, int ldb, EpiArgs e,
+              cudaStream_t st) {
+  if (sm90_gemm_ok(A, B, lda, ldb))
+    return launch_gemm_sm90<EPI, false>(A, B, M, N, K, lda, ldb, e, st);
+  return launch_gemm<EPI, false, true>(A, B, M, N, K, lda, ldb, e, st);
+}
+
+template <int EPI>
+int data_grad(const float* A, const float* B, int M, int N, int K, int lda, int ldb, EpiArgs e,
+              cudaStream_t st) {
+  return launch_gemm<EPI, false, true>(A, B, M, N, K, lda, ldb, e, st);
 }
 
 // ------------------------------------------------------ LayerNorm backward
@@ -222,7 +251,8 @@ int ln_bwd(const ZT* z, const T* dy, const float* gamma, int M, int H, float eps
 }
 
 // ------------------------------------------------ attention backward core
-// One block per (example, head), 8 warps, S <= 128 and head_dim D <= 64.
+// float32, and bf16 at head dims other than 64, on the CUDA cores. One block
+// per (example, head), 8 warps, S <= 128 and head_dim D <= 64.
 // Phase A, a warp per query row i: recompute the scores and the softmax,
 // replay the probability mask m, then
 //   Pd[i, j] = round(p * m),  dp = (dctx_i . v_j) * m,
@@ -372,10 +402,353 @@ attention_bwd_core(const T* __restrict__ qkv, const T* __restrict__ dctx,
   }
 }
 
+// ------------------------------- attention backward core, tensor cores
+// bf16, head_dim 64, S <= 128: one block per (example, head), 8 warps. Q, K,
+// V and dctx of the head are staged once as bf16 rows padded by 8 elements
+// (TA_LDK, conflict-free fragment loads), keys padded to a multiple of 16
+// (zero rows, bias -inf). Every product is mma.sync m16n8k16 with f32
+// accumulation on operands that are already bf16: K, V, Q and dctx are bf16
+// tensors, Pd and dS are rounded before use.
+// Phase A, a warp per 16 query rows:
+//   * the scores Q.K^T, their scale, bias and softmax in the k-order and
+//     the operations of attention_core_tc, so the replayed probabilities p
+//     are the forward's bit for bit;
+//   * dP = dctx.V^T; with the mask m replayed at the fragment's (i, j),
+//     Pd = round(p * m) and dp = dP * m; the row sum sum_j dp * p over the
+//     quad; dS = round((p * (dp - sum)) * scale);
+//   * dQ = dS.K with dS the A operand straight from registers;
+//   * Pd and dS to shared memory, rows i >= S as zeros (they write nothing
+//     and add nothing to dK and dV).
+// Phase B, after a block barrier, a warp per 16 key rows: dK = dS^T.Q and
+// dV = Pd^T.dctx, the A fragments read transposed with ldmatrix.trans.
+// The block is persistent (one per SM) and walks over the (example, head)
+// pairs; while it works on one, cp.async stages the next one's Q, K, V,
+// dctx and mask bias into the other of two buffers, so the loads hide behind
+// the products. Shared memory at S = 128: 2 x 72.5 KB of staging, 68 KB of
+// Pd and dS.
+constexpr int ABT_WARPS = 8;
+
+// bf16 elements of one staging buffer: Q, K, V and dctx (s_pad x TA_LDK
+// each) and the s_pad floats of mask bias.
+__host__ __device__ constexpr int abt_stage_elems(int s_pad) {
+  return 4 * s_pad * TA_LDK + 2 * s_pad;
+}
+
+__host__ __device__ constexpr size_t abt_smem_bytes(int S) {
+  return 2 * (2 * (size_t)abt_stage_elems(ta_pad(S)) +
+              2 * (size_t)ta_pad(S) * (ta_pad(S) + 8));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(ABT_WARPS * 32)
+attention_bwd_core_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
+                      const float* __restrict__ mask_bias, bf16* __restrict__ dqkv, int S,
+                      int H, int nh, int units, float scale, Drop drop) {
+  extern __shared__ __align__(16) unsigned char abt_smem[];
+  const int s_pad = ta_pad(S), ldp = s_pad + 8, tile = s_pad * TA_LDK;
+  const int stage_elems = abt_stage_elems(s_pad);
+  uint16_t* staging = reinterpret_cast<uint16_t*>(abt_smem);  // two buffers
+  uint16_t* Ps = staging + 2 * stage_elems;                    // Pd, s_pad x ldp
+  uint16_t* Ds = Ps + s_pad * ldp;                             // dS, s_pad x ldp
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t ld = 3 * (size_t)H;
+  const uint16_t* qkv16 = reinterpret_cast<const uint16_t*>(qkv);
+  const uint16_t* dctx16 = reinterpret_cast<const uint16_t*>(dctx);
+
+  // Stage pair u (example u / nh, head u % nh) into buffer `buf`: rows
+  // j >= S read as zeros, and their bias is -inf in both buffers (set once).
+  auto stage = [&](int u, int buf) {
+    const int b = u / nh, h = u % nh;
+    uint16_t* Q = staging + buf * stage_elems;
+    const uint16_t* rows = qkv16 + (size_t)b * S * ld + h * TA_D;
+    const uint16_t* crows = dctx16 + (size_t)b * S * H + h * TA_D;
+    for (int idx = tid; idx < s_pad * 8; idx += blockDim.x) {
+      const int j = idx >> 3, c = (idx & 7) * 8, o = j * TA_LDK + c;
+      const int n = j < S ? 16 : 0, jj = j < S ? j : 0;
+      const uint16_t* row = rows + jj * ld + c;
+      cp_async16(Q + o, row, n);
+      cp_async16(Q + tile + o, row + H, n);
+      cp_async16(Q + 2 * tile + o, row + 2 * H, n);
+      cp_async16(Q + 3 * tile + o, crows + (size_t)jj * H + c, n);
+    }
+    float* bias = reinterpret_cast<float*>(Q + 4 * tile);
+    for (int j = tid; j < S; j += blockDim.x) cp_async4(bias + j, mask_bias + (size_t)b * S + j);
+    cp_async_commit();
+  };
+  for (int j = S + tid; j < s_pad; j += blockDim.x)
+#pragma unroll
+    for (int buf = 0; buf < 2; ++buf)
+      reinterpret_cast<float*>(staging + buf * stage_elems + 4 * tile)[j] = -INFINITY;
+  stage(blockIdx.x, 0);
+
+  int buf = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, buf ^= 1) {
+    cp_async_wait<0>();
+    // Pair u is staged, and every warp is done with the other buffer and with
+    // Pd and dS: prefetch the block's next pair there.
+    __syncthreads();
+    if (u + (int)gridDim.x < units) stage(u + gridDim.x, buf ^ 1);
+    const uint16_t* Qs = staging + buf * stage_elems;
+    const uint16_t* Ks = Qs + tile;
+    const uint16_t* Vs = Ks + tile;
+    const uint16_t* Cs = Vs + tile;                                 // dctx
+    const float* Bs = reinterpret_cast<const float*>(Cs + tile);    // mask bias
+    const int b = u / nh, h = u % nh;
+    bf16* gbase = dqkv + (size_t)b * S * ld + h * TA_D;
+
+    const int n_tiles = s_pad / 8;  // <= 16 key tiles of 8
+    // ldmatrix.trans row addresses of a B operand stored [k][n] (n-contiguous)
+    // and of an A operand stored [k][m] (m-contiguous), as in gemm_bf16_tc.
+    const int bt_k = (lane & 7) + 8 * ((lane >> 3) & 1), bt_n = 8 * (lane >> 4);
+    const int at_k = (lane & 7) + 8 * (lane >> 4), at_m = 8 * ((lane >> 3) & 1);
+
+    const int r0 = warp * 16;
+    if (r0 < s_pad) {  // Phase A: query rows r0 .. r0 + 15
+      float sc[16][4], dp[16][4];
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[nt][c] = dp[nt][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < TA_D; kk += 16) {
+        uint32_t a[4], ac[4];
+        const uint16_t* p0 = Qs + (r0 + g) * TA_LDK + kk + t4 * 2;
+        const uint16_t* p1 = p0 + 8 * TA_LDK;
+        a[0] = *reinterpret_cast<const uint32_t*>(p0);
+        a[1] = *reinterpret_cast<const uint32_t*>(p1);
+        a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+        const uint16_t* c0 = Cs + (r0 + g) * TA_LDK + kk + t4 * 2;
+        const uint16_t* c1 = c0 + 8 * TA_LDK;
+        ac[0] = *reinterpret_cast<const uint32_t*>(c0);
+        ac[1] = *reinterpret_cast<const uint32_t*>(c1);
+        ac[2] = *reinterpret_cast<const uint32_t*>(c0 + 8);
+        ac[3] = *reinterpret_cast<const uint32_t*>(c1 + 8);
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt) {
+          if (nt < n_tiles) {
+            const uint16_t* kq = Ks + (nt * 8 + g) * TA_LDK + kk + t4 * 2;
+            const uint16_t* vq = Vs + (nt * 8 + g) * TA_LDK + kk + t4 * 2;
+            uint32_t bk[2], bv[2];
+            bk[0] = *reinterpret_cast<const uint32_t*>(kq);
+            bk[1] = *reinterpret_cast<const uint32_t*>(kq + 8);
+            bv[0] = *reinterpret_cast<const uint32_t*>(vq);
+            bv[1] = *reinterpret_cast<const uint32_t*>(vq + 8);
+            mma_bf16_16816(sc[nt], a, bk);
+            mma_bf16_16816(dp[nt], ac, bv);
+          }
+        }
+      }
+
+      // The softmax of attention_core_tc: rows g (c0, c1) and g + 8 (c2, c3),
+      // a row's columns spread over the 4 threads of a quad.
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        if (nt < n_tiles) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float bias = Bs[nt * 8 + t4 * 2 + e];
+            sc[nt][e] = sc[nt][e] * scale + bias;
+            sc[nt][2 + e] = sc[nt][2 + e] * scale + bias;
+            mx0 = fmaxf(mx0, sc[nt][e]);
+            mx1 = fmaxf(mx1, sc[nt][2 + e]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        if (nt < n_tiles) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[nt][e] = expf(sc[nt][e] - mx0);
+            sc[nt][2 + e] = expf(sc[nt][2 + e] - mx1);
+            sum0 += sc[nt][e];
+            sum1 += sc[nt][2 + e];
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+        sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+      }
+
+      // p, the mask, Pd, dp and the row sums sum_j dp * p.
+      const int i0 = r0 + g, i1 = i0 + 8;
+      const uint32_t dbase = DROP ? site_base(drop.seed, SITE_PROBS, (uint32_t)b, (uint32_t)h) : 0u;
+      uint32_t pd[16][2], ds[16][2];
+      float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        if (nt < n_tiles) {
+          float q0[2], q1[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            sc[nt][e] = sc[nt][e] / sum0;
+            sc[nt][2 + e] = sc[nt][2 + e] / sum1;
+            q0[e] = sc[nt][e];
+            q1[e] = sc[nt][2 + e];
+            if (DROP) {
+              const int j = nt * 8 + t4 * 2 + e;
+              const float m0 = keep_mult(drop, dbase, i0, j, S);
+              const float m1 = keep_mult(drop, dbase, i1, j, S);
+              q0[e] *= m0;
+              q1[e] *= m1;
+              dp[nt][e] *= m0;
+              dp[nt][2 + e] *= m1;
+            }
+            rs0 += dp[nt][e] * sc[nt][e];
+            rs1 += dp[nt][2 + e] * sc[nt][2 + e];
+          }
+          pd[nt][0] = pack_bf16x2(q0[0], q0[1]);
+          pd[nt][1] = pack_bf16x2(q1[0], q1[1]);
+        }
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        rs0 += __shfl_xor_sync(0xffffffffu, rs0, o);
+        rs1 += __shfl_xor_sync(0xffffffffu, rs1, o);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        if (nt < n_tiles) {
+          ds[nt][0] = pack_bf16x2((sc[nt][0] * (dp[nt][0] - rs0)) * scale,
+                                  (sc[nt][1] * (dp[nt][1] - rs0)) * scale);
+          ds[nt][1] = pack_bf16x2((sc[nt][2] * (dp[nt][2] - rs1)) * scale,
+                                  (sc[nt][3] * (dp[nt][3] - rs1)) * scale);
+          if (i0 >= S) pd[nt][0] = ds[nt][0] = 0u;
+          if (i1 >= S) pd[nt][1] = ds[nt][1] = 0u;
+        }
+      }
+
+      // dQ = dS . K: the dS fragments are the A operand of 16 keys at a time.
+      float dq[8][4];
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dq[dn][c] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < 8; ++kc) {
+        if (kc < n_tiles / 2) {
+          const uint32_t a[4] = {ds[2 * kc][0], ds[2 * kc][1], ds[2 * kc + 1][0],
+                                 ds[2 * kc + 1][1]};
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, Ks + (kc * 16 + bt_k) * TA_LDK + bt_n + np * 16);
+            const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+            mma_bf16_16816(dq[2 * np], a, b0);
+            mma_bf16_16816(dq[2 * np + 1], a, b1);
+          }
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        const int col = dn * 8 + t4 * 2;
+        if (i0 < S)
+          *reinterpret_cast<uint32_t*>(gbase + (size_t)i0 * ld + col) =
+              pack_bf16x2(dq[dn][0], dq[dn][1]);
+        if (i1 < S)
+          *reinterpret_cast<uint32_t*>(gbase + (size_t)i1 * ld + col) =
+              pack_bf16x2(dq[dn][2], dq[dn][3]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 16; ++nt) {
+        if (nt < n_tiles) {
+          const int c = nt * 8 + t4 * 2;
+          *reinterpret_cast<uint32_t*>(Ps + i0 * ldp + c) = pd[nt][0];
+          *reinterpret_cast<uint32_t*>(Ps + i1 * ldp + c) = pd[nt][1];
+          *reinterpret_cast<uint32_t*>(Ds + i0 * ldp + c) = ds[nt][0];
+          *reinterpret_cast<uint32_t*>(Ds + i1 * ldp + c) = ds[nt][1];
+        }
+      }
+    }
+    __syncthreads();
+
+    const int j0 = warp * 16;
+    if (j0 < S) {  // Phase B: key rows j0 .. j0 + 15
+      float dk[8][4], dv[8][4];
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dk[dn][c] = dv[dn][c] = 0.f;
+      for (int kc = 0; kc < n_tiles / 2; ++kc) {  // 16 queries at a time
+        uint32_t ads[4], apd[4];
+        ldmatrix_x4_trans(ads, Ds + (kc * 16 + at_k) * ldp + j0 + at_m);
+        ldmatrix_x4_trans(apd, Ps + (kc * 16 + at_k) * ldp + j0 + at_m);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t rq[4], rc[4];
+          ldmatrix_x4_trans(rq, Qs + (kc * 16 + bt_k) * TA_LDK + bt_n + np * 16);
+          ldmatrix_x4_trans(rc, Cs + (kc * 16 + bt_k) * TA_LDK + bt_n + np * 16);
+          const uint32_t q0[2] = {rq[0], rq[1]}, q1[2] = {rq[2], rq[3]};
+          const uint32_t c0[2] = {rc[0], rc[1]}, c1[2] = {rc[2], rc[3]};
+          mma_bf16_16816(dk[2 * np], ads, q0);
+          mma_bf16_16816(dk[2 * np + 1], ads, q1);
+          mma_bf16_16816(dv[2 * np], apd, c0);
+          mma_bf16_16816(dv[2 * np + 1], apd, c1);
+        }
+      }
+      const int j = j0 + g, j1 = j + 8;
+#pragma unroll
+      for (int dn = 0; dn < 8; ++dn) {
+        const int col = dn * 8 + t4 * 2;
+        if (j < S) {
+          bf16* out = gbase + (size_t)j * ld + col;
+          *reinterpret_cast<uint32_t*>(out + H) = pack_bf16x2(dk[dn][0], dk[dn][1]);
+          *reinterpret_cast<uint32_t*>(out + 2 * H) = pack_bf16x2(dv[dn][0], dv[dn][1]);
+        }
+        if (j1 < S) {
+          bf16* out = gbase + (size_t)j1 * ld + col;
+          *reinterpret_cast<uint32_t*>(out + H) = pack_bf16x2(dk[dn][2], dk[dn][3]);
+          *reinterpret_cast<uint32_t*>(out + 2 * H) = pack_bf16x2(dv[dn][2], dv[dn][3]);
+        }
+      }
+    }
+  }
+}
+
+template <bool DROP>
+int attention_bwd_tc_launch(const bf16* qkv, const bf16* dctx, const float* mask, bf16* dqkv,
+                            int B, int S, int H, int nh, float scale, Drop drop,
+                            cudaStream_t st) {
+  const size_t smem = abt_smem_bytes(S);
+  int err = (int)cudaFuncSetAttribute(attention_bwd_core_tc<DROP>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const int units = B * nh, blocks = units < sm_count() ? units : sm_count();
+  attention_bwd_core_tc<DROP><<<blocks, ABT_WARPS * 32, smem, st>>>(qkv, dctx, mask, dqkv, S, H,
+                                                                   nh, units, scale, drop);
+  return (int)cudaGetLastError();
+}
+
+// dq | dk | dv of every (example, head): the tensor cores for bf16 at
+// head_dim 64, the CUDA-core version otherwise.
 template <typename T>
 int attention_bwd_launch(const T* qkv, const T* dctx, const float* mask, T* dqkv, int B,
                          int S, int H, int nh, float scale, Drop drop, cudaStream_t st) {
   const int D = H / nh;
+  if constexpr (sizeof(T) == 2) {
+    if (D == TA_D)
+      return drop.on ? attention_bwd_tc_launch<true>(qkv, dctx, mask, dqkv, B, S, H, nh, scale,
+                                                     drop, st)
+                     : attention_bwd_tc_launch<false>(qkv, dctx, mask, dqkv, B, S, H, nh,
+                                                      scale, drop, st);
+  }
   const size_t smem = ab_smem_floats(S, D) * sizeof(float);
   int err = (int)cudaFuncSetAttribute(attention_bwd_core<T>,
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -387,12 +760,6 @@ int attention_bwd_launch(const T* qkv, const T* dctx, const float* mask, T* dqkv
 }
 
 // ------------------------------------------------------------ sub-blocks
-#define RT_TRY(...)            \
-  do {                         \
-    int e_ = (__VA_ARGS__);    \
-    if (e_) return e_;         \
-  } while (0)
-
 bool attention_shape_ok(int S, int H, int nh) {
   return nh > 0 && S > 0 && S <= AT_MAX_S && H % nh == 0 && H / nh <= AT_MAX_D;
 }
@@ -435,16 +802,15 @@ int attention_bwd_impl(const T* x, const T* dy, const T* wqkv, const float* bqkv
   RT_TRY(colsum<T>(dy, M, H, part, dbeta, st));
   RT_TRY(colsum<T>(dattn, M, H, part, dbo, st));
   // dctx = dattn . Wo, then the attention core's backward.
-  RT_TRY(launch_gemm<EPI_ROUND, false, true>(dattn, wo, M, H, H, H, H,
-                                             epi(nullptr, nullptr, dctx), st));
+  RT_TRY(data_grad<EPI_ROUND>(dattn, wo, M, H, H, H, H, epi(nullptr, nullptr, dctx), st));
   RT_TRY(attention_bwd_launch<T>(qkv, dctx, mask, dqkv, B, S, H, nh, scale, probs_drop(d),
                                  st));
   RT_TRY(colsum<T>(dqkv, M, 3 * H, part, dbqkv, st));
   // Weight gradients over the B*S rows, then dx = dz + dqkv . Wqkv.
   RT_TRY(weight_grad<T>(dqkv, x, 3 * H, H, M, dwqkv, wsplit, st));
   RT_TRY(weight_grad<T>(dattn, ctx, H, H, M, dwo, wsplit, st));
-  return launch_gemm<EPI_ADD_F32_ROUND, false, true>(dqkv, wqkv, M, H, 3 * H, 3 * H, H,
-                                                     epi(nullptr, dz, dx), st);
+  return data_grad<EPI_ADD_F32_ROUND>(dqkv, wqkv, M, H, 3 * H, 3 * H, H, epi(nullptr, dz, dx),
+                                      st);
 }
 
 template <typename T>
@@ -476,12 +842,10 @@ int ffn_bwd_impl(const T* x, const T* z, const T* dy, const T* w1, const float* 
                                        st));
   RT_TRY(weight_grad<T>(dout, inter, H, I, M, dw2, wsplit, st));
   // dt1 = (dout . W2) * gelu'(t1); db1, dW1 = dt1^T . x; dx = dz + dt1 . W1.
-  RT_TRY(launch_gemm<EPI_GELU_GRAD, false, true>(dout, w2, M, I, H, H, I,
-                                                 epi(nullptr, t1, dt1), st));
+  RT_TRY(data_grad<EPI_GELU_GRAD>(dout, w2, M, I, H, H, I, epi(nullptr, t1, dt1), st));
   RT_TRY(colsum<T>(dt1, M, I, part, db1, st));
   RT_TRY(weight_grad<T>(dt1, x, I, H, M, dw1, wsplit, st));
-  return launch_gemm<EPI_ADD_F32_ROUND, false, true>(dt1, w1, M, H, I, I, H,
-                                                     epi(nullptr, dz, dx), st);
+  return data_grad<EPI_ADD_F32_ROUND>(dt1, w1, M, H, I, I, H, epi(nullptr, dz, dx), st);
 }
 
 }  // namespace
@@ -503,6 +867,22 @@ extern "C" long long rt_train_colsum_scratch(int M, int N) {
 
 extern "C" long long rt_train_split_scratch(int M, int N) {
   return (long long)MAX_SPLITS * M * N;
+}
+
+// One backward product alone, bf16, for tests and timing, on the route
+// the backward takes: a_t = 0, out (bf16, M x N) = round(A . B) for A (M, K)
+// and B (K, N) row-major, as dctx, dt1 and dx; a_t = 1, out (f32, M x N) =
+// A^T . B over K rows for A (K, M) and B (K, N), as a weight gradient, with
+// its split-K partials in wsplit (rt_train_split_scratch(M, N) floats).
+extern "C" int rt_train_gemm(const void* a, const void* b, void* out, void* wsplit, int M,
+                             int N, int K, int a_t, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* A = static_cast<const bf16*>(a);
+  const bf16* B = static_cast<const bf16*>(b);
+  if (a_t)
+    return weight_grad<bf16>(A, B, M, N, K, static_cast<float*>(out),
+                             static_cast<float*>(wsplit), st);
+  return data_grad<EPI_ROUND>(A, B, M, N, K, K, N, epi(nullptr, nullptr, out), st);
 }
 
 #define F(p) static_cast<const float*>(p)

@@ -13,6 +13,9 @@ Counterparts of ``realise_tpu/ops/pallas/bert_block_train.py``
 * :func:`ffn_train_backward` ← ``_ffn_bwd_impl`` (LN backward from the
   rounded z, recomputes t1 = x·W1 + b1, then dx and every gradient).
 
+:func:`backward_gemm` runs one product of the two backward kernels alone
+(their Hopper GEMM, ``csrc/gemm_sm90.cuh``), for tests and timing.
+
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel (CUDA C++ for sm_90a, ``csrc/bert_block_train.cu``) or
 raises. Parameters arrive as the live ``nn.Parameter``s (torch (out, in)
@@ -297,6 +300,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.rt_attention_train_fwd, lib.rt_attention_train_bwd,
                    lib.rt_ffn_train_fwd, lib.rt_ffn_train_bwd):
             fn.restype = i
+        lib.rt_train_gemm.argtypes = [p] * 4 + [i] * 4 + [p]
+        lib.rt_train_gemm.restype = i
         for fn in (lib.rt_train_colsum_scratch, lib.rt_train_split_scratch):
             fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
         _LIB = lib
@@ -356,6 +361,43 @@ def _splits(m: int, n: int, device) -> torch.Tensor:
     """Scratch of the K-split partials of an ``m`` x ``n`` weight gradient."""
     return torch.empty(_lib().rt_train_split_scratch(m, n),
                        dtype=torch.float32, device=device)
+
+
+def backward_gemm_plain(a: torch.Tensor, b: torch.Tensor,
+                        transpose_a: bool = False) -> torch.Tensor:
+    """float32 aᵀ·b (a (K, M), b (K, N)), or a·b (a (M, K), b (K, N))
+    rounded to a's dtype."""
+    if transpose_a:
+        return a.float().t() @ b.float()
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def backward_gemm(a: torch.Tensor, b: torch.Tensor,
+                  transpose_a: bool = False) -> torch.Tensor:
+    """One product of the train backward kernels alone, bf16, on their
+    route: ``transpose_a`` is a weight gradient (aᵀ·b over the rows, float32
+    out, split-K partials summed in order), else a data gradient (a·b
+    rounded to bf16). For tests and timing; the backward never calls it."""
+    if a.device.type == "cpu":
+        return backward_gemm_plain(a, b, transpose_a)
+    if a.device.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, got {a.device}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[0 if transpose_a else 1] != b.shape[0]:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(b.shape)} do not "
+                         f"multiply{' with a transposed' if transpose_a else ''}")
+    k, n = b.shape
+    m = a.shape[1] if transpose_a else a.shape[0]
+    _check("a", a, a.shape, torch.bfloat16, a.device)
+    _check("b", b, b.shape, torch.bfloat16, a.device)
+    if transpose_a:
+        out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+        wsplit = _splits(m, n, a.device)
+    else:
+        out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
+        wsplit = out
+    _run("rt_train_gemm", *_ptrs(a, b, out, wsplit), m, n, k, int(transpose_a),
+         _stream(a.device))
+    return out
 
 
 # ---------------------------------------------------------- the wrappers

@@ -191,12 +191,14 @@ def test_train_kernels_match_plain(cuda_device, dtype, rate, hidden, heads):
     """The four train kernels (forward y and z, backward dx and every
     parameter gradient) against their plain versions, padded rows included;
     H=256 takes the two-samples-per-hash dropout stream at the hidden sites,
-    and head_dim 64 the bf16 tensor-core attention core."""
+    and head_dim 64 the bf16 tensor-core attention cores (forward and
+    backward) and the backward's Hopper GEMM at S = 37, 64 and 128 (B*S =
+    74 rows: a ragged tile edge)."""
     dt = getattr(torch, dtype)
     att_p, ffn_p = _train_params(_layer(hidden, heads).to(cuda_device))
     pa, pf = tbt.pack_attention(att_p, dt), tbt.pack_ffn(ffn_p, dt)
     rng = np.random.RandomState(7)
-    for b, s in ((3, 8), (2, 37), (2, 128)):
+    for b, s in ((3, 8), (2, 37), (2, 64), (2, 128)):
         x = torch.tensor(rng.normal(0, 1, (b, s, hidden)).astype(np.float32))
         dy = torch.tensor(rng.normal(0, 1, (b, s, hidden)).astype(np.float32))
         x, dy = x.to(cuda_device, dt), dy.to(cuda_device, dt)
@@ -261,3 +263,61 @@ def test_train_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
             torch.randn((1, 129, 16), device=cuda_device),
             tbt.pack_attention(att_p, torch.float32),
             torch.zeros((1, 129), device=cuda_device), 0, 2)
+
+
+def test_train_backwards_give_the_same_bits_twice(cuda_device):
+    """Two calls of each bf16 train backward are bitwise equal: no atomics,
+    and the weight gradients' split-K partials are summed in a fixed order."""
+    att_p, ffn_p = _train_params(_layer(256, 4).to(cuda_device))
+    pa = tbt.pack_attention(att_p, torch.bfloat16)
+    pf = tbt.pack_ffn(ffn_p, torch.bfloat16)
+    gen = torch.Generator().manual_seed(3)
+    b, s = 4, 128
+    x, dy = (torch.randn((b, s, 256), generator=gen).to(cuda_device, torch.bfloat16)
+             for _ in range(2))
+    bias = torch.zeros((b, s), device=cuda_device)
+    bias[1, 70:] = -10000.0
+    z = tbt.ffn_train_forward(x, pf, 9, 1e-12, 0.1)[1]
+    runs = {
+        "attention": lambda: tbt.attention_train_backward(x, dy, pa, bias, 9, 4,
+                                                          1e-12, 0.1, 0.1),
+        "ffn": lambda: tbt.ffn_train_backward(x, z, dy, pf, 9, 1e-12, 0.1)}
+    for name, run in runs.items():
+        (dx1, g1), (dx2, g2) = run(), run()
+        assert torch.equal(dx1, dx2), name
+        for k in g1:
+            assert torch.equal(g1[k], g2[k]), (name, k)
+
+
+# The backward GEMM alone against a float32 product of the same bf16 inputs,
+# relative to the largest |value|: a float32 weight gradient differs in the
+# order of its sums only; a bf16 data gradient by one rounding (2^-8 of a
+# value), allowed twice.
+GEMM_REL = {True: 1e-4, False: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("transpose_a, shape_a, shape_b", [
+    # data gradients a (M, K) . b (K, N): ragged M, N past a 256-wide tile
+    # and K past a 64-deep one; K = 37 takes the mma.sync GEMM (TMA needs
+    # row strides of a multiple of 8).
+    (False, (148, 768), (768, 320)),
+    (False, (300, 200), (200, 768)),
+    (False, (148, 37), (37, 64)),
+    # weight gradients a (K, M)^T . b (K, N) over K rows: ragged K (148, and
+    # 4100 split along K into partials), M and N past their tiles.
+    (True, (148, 768), (148, 256)),
+    (True, (4100, 192), (4100, 320)),
+    (True, (148, 37), (148, 16)),
+], ids=["dY.W", "dY.W-ragged-K", "dY.W-mma.sync", "dW", "dW-split-K",
+        "dW-mma.sync"])
+def test_backward_gemm_layouts_match_a_float_product(cuda_device, transpose_a,
+                                                      shape_a, shape_b):
+    gen = torch.Generator().manual_seed(11)
+    a = torch.randn(shape_a, generator=gen).to(cuda_device, torch.bfloat16)
+    b = torch.randn(shape_b, generator=gen).to(cuda_device, torch.bfloat16)
+    got = tbt.backward_gemm(a, b, transpose_a)
+    want = (a.float().t() if transpose_a else a.float()) @ b.float()
+    assert got.dtype == (torch.float32 if transpose_a else torch.bfloat16)
+    assert got.shape == want.shape
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= GEMM_REL[transpose_a]

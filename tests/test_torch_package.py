@@ -45,3 +45,16 @@ def test_scan_catches_a_forbidden_import(tmp_path):
                      "from realise_tpu_torch.config import config_for\n"
                      "def f():\n    import jax.numpy as jnp\n")
     assert set(_imported_roots(probe)) & FORBIDDEN == {"realise_tpu", "jax"}
+
+
+def test_train_build_hash_covers_the_hopper_gemm_header():
+    """The train kernels' library is rebuilt when any header it includes
+    changes: its source list (which the build hash reads) holds the Hopper
+    GEMM header and, through it, the shared one."""
+    from realise_tpu_torch.ops.kernels import _build
+
+    names = [p.name for p in _build.sources("bert_block_train")]
+    assert names[0] == "bert_block_train.cu"
+    assert {"gemm_sm90.cuh", "bert_block_common.cuh"} <= set(names)
+    assert [p.name for p in _build.sources("bert_block")] == [
+        "bert_block.cu", "bert_block_common.cuh"]

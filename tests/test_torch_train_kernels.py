@@ -297,3 +297,27 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         tbt.ffn_train_forward(x, pf, 0)
     with pytest.raises(ValueError, match="CUDA"):
         tbt.ffn_train_backward(x, x, x, pf, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbt.backward_gemm(x[0], x[0].t(), False)
+
+
+@pytest.mark.parametrize("transpose_a", [False, True])
+def test_backward_gemm_plain_is_the_product(transpose_a):
+    """The backward GEMM's plain version (what a CPU tensor gets, and what
+    the card's kernel is held to): a float32 weight gradient aᵀ·b over the
+    rows, or a data gradient a·b rounded to a's dtype."""
+    rng = np.random.RandomState(4)
+    a = torch.tensor(rng.normal(0, 1, (37, 24)), dtype=torch.bfloat16)
+    b = torch.tensor(rng.normal(0, 1, (37 if transpose_a else 24, 16)),
+                     dtype=torch.bfloat16)
+    got = tbt.backward_gemm(a, b, transpose_a)
+    lhs = a.double().numpy().T if transpose_a else a.double().numpy()
+    want = lhs @ b.double().numpy()
+    if transpose_a:
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    else:
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            got.float().numpy(),
+            torch.tensor(want, dtype=torch.float32).to(torch.bfloat16).float().numpy())

@@ -98,6 +98,14 @@ TRAIN_RATE = 0.1  # the published dropout of both sites
 # EPI_RESID_ROUND_DROP in the attention backward, EPI_BIAS_T1_GELU in the
 # FFN's). Every other product takes gemm_sm90.
 RECOMPUTE_EPI = {"attention_train_backward": {0, 4}, "ffn_train_backward": {9}}
+# The gemm_sm90 products each bf16 train backward must run, by epilogue mode
+# and A layout: the weight gradients (EPI_STORE_F32, A MN-major), dctx
+# (EPI_ROUND), dt1 (EPI_GELU_GRAD) and dx (EPI_ADD_F32_ROUND).
+SM90_PRODUCTS = {
+    "attention_train_backward": ("gemm_sm90<6, true>", "gemm_sm90<7, false>",
+                                 "gemm_sm90<8, false>", "attention_bwd_core_tc<"),
+    "ffn_train_backward": ("gemm_sm90<6, true>", "gemm_sm90<10, false>",
+                           "gemm_sm90<8, false>")}
 # The backward GEMM alone against an f32 product of the same bf16 inputs,
 # relative to the largest |value|: a float32 weight gradient differs in the
 # order of its sums only; a bf16 data gradient by one rounding, 2^-8 of a
@@ -577,9 +585,9 @@ def check_deterministic(name, b, kern):
 
 
 def check_backward_profile(name, parts):
-    """The B=256 profile of a bf16 train backward shows its Hopper GEMM, the
-    tensor-core attention core, and no other mma.sync product than the
-    forward replays."""
+    """The B=256 profile of a bf16 train backward shows each of its Hopper
+    GEMM products, the tensor-core attention core, and no other mma.sync
+    product than the forward replays."""
     names = [k for _, k in parts]
     if not names:
         fail(f"{name}: the profiler recorded no device time")
@@ -588,9 +596,7 @@ def check_backward_profile(name, parts):
         mode = re.search(r"gemm_bf16_tc<(\d+)", k)
         if mode and int(mode.group(1)) not in RECOMPUTE_EPI[name]:
             stale.append(k)
-    missing = ["gemm_sm90<"] + (["attention_bwd_core_tc<"]
-                                if name == "attention_train_backward" else [])
-    missing = [m for m in missing if not any(m in k for k in names)]
+    missing = [m for m in SM90_PRODUCTS[name] if not any(m in k for k in names)]
     log(f"check {name} B=256 profile: old routes {len(stale)}, missing "
         f"{missing or 'none'}")
     if stale or missing:

@@ -14,6 +14,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    unchanged);
 4. times at the serving shapes (S=128, B=32 and 256, bf16): each kernel, its
    plain version, one library yardstick the port never calls, and the bound;
+   the B=256 profile of ``ffn_block`` must show both products on the Hopper
+   GEMM with K-major weights and none on ``gemm_bf16_tc``;
 5. serving at full width: the published arch3 preset with seeded random
    weights and glyphs, saved as a port checkpoint and served by
    ``realise_tpu_torch.serving.Corrector`` on the card for requests of 1, 8
@@ -31,12 +33,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    library forward the port never calls, and the bound (the backward's
    counting its recompute); at these shapes too every output of each kernel
    is held against its plain version with phase 6's bf16 limit, two calls of
-   each backward must give the same bits, and the B=256 profile of each
-   backward must show its Hopper GEMM (``gemm_sm90``), the attention
-   backward its tensor-core core, and no ``gemm_bf16_tc`` product but the
-   ones that replay the forward; then the backward GEMM alone at its two
-   layouts at the B=256 training shapes (dWqkv, FFN dx): time, TFLOP/s and
-   ``torch.matmul``'s time on the same inputs;
+   each backward must give the same bits, the B=256 profile of each
+   backward must show its Hopper GEMM (``gemm_sm90``) products, the
+   attention backward its tensor-core core, and no ``gemm_bf16_tc`` product
+   but the ones that replay the attention forward, and the FFN train
+   forward's B=256 profile both its products on the Hopper GEMM; the FFN
+   forward's gelu(t1) and the backward's replay of it must be the same bits
+   at B=32 and 256; then the Hopper GEMM alone at the B=256 training shapes
+   (dWqkv, FFN dx, and the FFN forward's W1 and W2 products): time, TFLOP/s
+   and ``torch.matmul``'s time on the same inputs;
 8. training at full width: the published arch3 preset in bfloat16 at its
    published dropout (0.1), seeded random weights and glyphs, synthetic
    sentences featurized at bucket 128, ``realise_tpu_torch.training.Trainer``
@@ -93,19 +98,31 @@ TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 1.5e-3
 TRAIN_RATE = 0.1  # the published dropout of both sites
 # The gemm_bf16_tc products a bf16 train backward still runs (by epilogue
-# mode, bert_block_common.cuh): the ones that replay the forward, so that
-# the replayed q/k/v, z and t1 are the forward's bit for bit (EPI_BIAS and
-# EPI_RESID_ROUND_DROP in the attention backward, EPI_BIAS_T1_GELU in the
-# FFN's). Every other product takes gemm_sm90.
-RECOMPUTE_EPI = {"attention_train_backward": {0, 4}, "ffn_train_backward": {9}}
-# The gemm_sm90 products each bf16 train backward must run, by epilogue mode
-# and A layout: the weight gradients (EPI_STORE_F32, A MN-major), dctx
-# (EPI_ROUND), dt1 (EPI_GELU_GRAD) and dx (EPI_ADD_F32_ROUND).
+# mode, bert_block_common.cuh): the ones that replay the attention forward,
+# so that the replayed q/k/v and z are the forward's bit for bit (EPI_BIAS
+# and EPI_RESID_ROUND_DROP). Every other product takes gemm_sm90, the FFN's
+# t1 replay on the FFN forward's own route.
+RECOMPUTE_EPI = {"attention_train_backward": {0, 4}, "ffn_train_backward": set()}
+# The gemm_sm90 products (gemm_sm90<EPI, A MN-major, B K-major, ping-pong>)
+# each bf16 FFN kernel and train backward must run: the weight gradients
+# (EPI_STORE_F32, A MN-major), dctx (EPI_ROUND), dt1 (EPI_GELU_GRAD) and dx
+# (EPI_ADD_F32_ROUND) on the cooperative schedule; the FFN's x.W1^T
+# (EPI_BIAS_GELU, its replay EPI_BIAS_T1_GELU) on the ping-pong schedule and,
+# at B=256, its inter.W2^T (EPI_RESID_F32, EPI_RESID_F32_DROP) on the
+# cooperative one, both with K-major weights.
 SM90_PRODUCTS = {
-    "attention_train_backward": ("gemm_sm90<6, true>", "gemm_sm90<7, false>",
-                                 "gemm_sm90<8, false>", "attention_bwd_core_tc<"),
-    "ffn_train_backward": ("gemm_sm90<6, true>", "gemm_sm90<10, false>",
-                           "gemm_sm90<8, false>")}
+    "ffn_block": ("gemm_sm90<1, false, true, true>", "gemm_sm90<3, false, true, false>"),
+    "ffn_train_forward": ("gemm_sm90<1, false, true, true>",
+                          "gemm_sm90<5, false, true, false>"),
+    "attention_train_backward": ("gemm_sm90<6, true, false, false>",
+                                 "gemm_sm90<7, false, false, false>",
+                                 "gemm_sm90<8, false, false, false>", "attention_bwd_core_tc<"),
+    "ffn_train_backward": ("gemm_sm90<6, true, false, false>",
+                           "gemm_sm90<9, false, true, true>",
+                           "gemm_sm90<10, false, false, false>",
+                           "gemm_sm90<8, false, false, false>")}
+# The gemm_bf16_tc products each FFN forward kernel used to run, by mode.
+FORWARD_STALE_EPI = {"ffn_block": {1, 3}, "ffn_train_forward": {1, 5}}
 # The backward GEMM alone against an f32 product of the same bf16 inputs,
 # relative to the largest |value|: a float32 weight gradient differs in the
 # order of its sums only; a bf16 data gradient by one rounding, 2^-8 of a
@@ -323,6 +340,8 @@ def time_kernels(device, gen, card):
                     log(f"  profile {name} B={b}: {part_ms:.4f} ms {kname[:90]}")
                 if not parts:
                     log(f"  profile {name} B={b}: no device time recorded")
+                if name in SM90_PRODUCTS:
+                    check_profile(name, parts, FORWARD_STALE_EPI[name])
             if b == 32:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
@@ -398,25 +417,29 @@ def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
             fail(f"{name} launched {n} times in {steps} steps, expected "
                  f"{layers} per step")
 
-    # Where the largest request's time goes: host clock, each part ending
-    # synchronised (the device step ends in a copy of the ids to the host).
-    sents = batches[-1]
-    t0 = time.perf_counter()
-    host = corrector.featurizer.featurize_raw(sents, seq_len=128)
-    arrays = corrector.featurizer.device_batch(host)
-    t1 = time.perf_counter()
-    host["pred_idx"] = corrector._device_step(arrays)
-    t2 = time.perf_counter()
-    for i, src in enumerate(sents):
-        corrector._reconstruct(src, host, i)
-    t3 = time.perf_counter()
-    log(f"serve: request of {len(sents)} sentences split: featurize "
-        f"{1e3 * (t1 - t0):.3f} ms, device step {1e3 * (t2 - t1):.3f} ms, "
-        f"reconstruct {1e3 * (t3 - t2):.3f} ms")
-    parts = kernel_breakdown(lambda: corrector.logits(arrays).argmax(-1))
-    busy = sum(ms for ms, _ in parts)
-    log(f"serve: device step kernels {busy:.3f} ms, "
-        f"{busy / (1e3 * (t2 - t1)):.1%} of the step's host-clock time")
+    # Where each request's time goes: host clock, each part ending
+    # synchronised (the device step ends in a copy of the ids to the host),
+    # and the device step's kernels by name (the largest request's listed).
+    for sents in batches:
+        bucket = corrector._bucket_for(sents)
+        rows = corrector._batch_bucket_for(len(sents))
+        padded = list(sents) + [sents[-1]] * (rows - len(sents))
+        t0 = time.perf_counter()
+        host = corrector.featurizer.featurize_raw(padded, seq_len=bucket)
+        arrays = corrector.featurizer.device_batch(host)
+        t1 = time.perf_counter()
+        host["pred_idx"] = corrector._device_step(arrays)
+        t2 = time.perf_counter()
+        for i, src in enumerate(sents):
+            corrector._reconstruct(src, host, i)
+        t3 = time.perf_counter()
+        parts = kernel_breakdown(lambda: corrector.logits(arrays).argmax(-1))
+        busy = sum(ms for ms, _ in parts)
+        log(f"serve: request of {len(sents)} sentences (bucket {bucket}) split: "
+            f"featurize {1e3 * (t1 - t0):.3f} ms, device step "
+            f"{1e3 * (t2 - t1):.3f} ms with {busy:.3f} ms of kernels "
+            f"({busy / (1e3 * (t2 - t1)):.1%}), reconstruct "
+            f"{1e3 * (t3 - t2):.3f} ms")
     for part_ms, kname in parts[:8]:
         log(f"  profile step: {part_ms:.4f} ms {kname[:90]}")
 
@@ -584,17 +607,18 @@ def check_deterministic(name, b, kern):
         fail(f"{name} bf16 B={b}: two calls differ")
 
 
-def check_backward_profile(name, parts):
-    """The B=256 profile of a bf16 train backward shows each of its Hopper
-    GEMM products, the tensor-core attention core, and no other mma.sync
-    product than the forward replays."""
+def check_profile(name, parts, stale_epi):
+    """The B=256 profile of a bf16 FFN kernel or train backward shows each of
+    its Hopper GEMM products (and the tensor-core attention backward core),
+    and no ``attention_bwd_core`` or ``gemm_bf16_tc`` product of an epilogue
+    mode in ``stale_epi``."""
     names = [k for _, k in parts]
     if not names:
         fail(f"{name}: the profiler recorded no device time")
     stale = [k for k in names if re.search(r"attention_bwd_core<", k)]
     for k in names:
         mode = re.search(r"gemm_bf16_tc<(\d+)", k)
-        if mode and int(mode.group(1)) not in RECOMPUTE_EPI[name]:
+        if mode and int(mode.group(1)) in stale_epi:
             stale.append(k)
     missing = [m for m in SM90_PRODUCTS[name] if not any(m in k for k in names)]
     log(f"check {name} B=256 profile: old routes {len(stale)}, missing "
@@ -603,10 +627,29 @@ def check_backward_profile(name, parts):
         fail(f"{name}: profile shows {stale} and lacks {missing}")
 
 
+def check_replay_bits(b, p_ffn, x):
+    """The FFN forward's gelu(t1) (its W1 product's epilogue) and the FFN
+    backward's replay of it, on the route both take, are the same bits."""
+    import torch
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+
+    xf = x.reshape(-1, H)
+    inter = tbt.forward_gemm(xf, p_ffn["w1"], p_ffn["b1"], tbt.EPI_BIAS_GELU)
+    replay = tbt.forward_gemm(xf, p_ffn["w1"], p_ffn["b1"], tbt.EPI_BIAS_T1_GELU)[1]
+    same = torch.equal(inter, replay)
+    log(f"check FFN t1 replay bf16 B={b}: gelu(t1) of the backward equals the "
+        f"forward's bit for bit: {same}")
+    if not same:
+        fail(f"the FFN backward's replayed gelu(t1) differs from the forward's at B={b}")
+
+
 def time_backward_gemm(device, gen, card):
-    """The train backward's Hopper GEMM alone at two products of the B=256,
-    S=128 training shapes: dWqkv = dqkvᵀ·x (both operands MN-major, float32
-    split-K partials) and the FFN's dx = dt1·W1 (A K-major, bf16 out)."""
+    """The Hopper GEMM alone at four products of the B=256, S=128 training
+    shapes: dWqkv = dqkvᵀ·x (both operands MN-major, float32 split-K
+    partials), the FFN's dx = dt1·W1 (A K-major, bf16 out), and the FFN
+    forward's x·W1ᵀ with bias and gelu (ping-pong) and inter·W2ᵀ into the
+    float32 residual with dropout 0.1 (cooperative), K-major weights."""
     import torch
 
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
@@ -633,6 +676,28 @@ def time_backward_gemm(device, gen, card):
             f"the bf16 peak), torch.matmul {lib_ms:.4f} ms, relative "
             f"|gemm - f32 product| {err:.2e} (tol {GEMM_REL[trans]:.2e}) [{card}]")
         if not err <= GEMM_REL[trans]:
+            fail(f"gemm_sm90 {label}: relative error {err:.3e}")
+    x = torch.randn((m, H), generator=gen).to(device, torch.bfloat16)
+    for label, mode, k, n in (
+            ("FFN W1 gelu(x.W1^T + b1)", tbt.EPI_BIAS_GELU, H, INTER),
+            ("FFN W2 x + drop(inter.W2^T + b2)", tbt.EPI_RESID_F32_DROP, INTER, H)):
+        a = torch.randn((m, k), generator=gen).to(device, torch.bfloat16)
+        w = (torch.randn((n, k), generator=gen) * k ** -0.5).to(device, torch.bfloat16)
+        bias = (torch.randn((n,), generator=gen) * 0.1).to(device)
+        args = (a, w, bias, mode, x if n == H else None, 4321, 128, TRAIN_RATE)
+        got, want = tbt.forward_gemm(*args), tbt.forward_gemm_plain(*args)
+        f32 = want.dtype == torch.float32
+        err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+        del got, want
+        ms = time_ms(lambda: tbt.forward_gemm(*args), flush)
+        lib_ms = time_ms(lambda: torch.matmul(a, w.t()), flush)
+        tflops = 2 * m * k * n / ms / 1e9
+        log(f"gemm_sm90 {label} (M={m}, N={n}, K={k}, A K-major, B K-major, "
+            f"the blocks' route): {ms:.4f} ms, {tflops:.1f} TFLOP/s "
+            f"({tflops / (PEAK_BF16_FLOPS / 1e12):.1%} of the bf16 peak), "
+            f"torch.matmul {lib_ms:.4f} ms, relative |gemm - plain| {err:.2e} "
+            f"(tol {GEMM_REL[f32]:.2e}) [{card}]")
+        if not err <= GEMM_REL[f32]:
             fail(f"gemm_sm90 {label}: relative error {err:.3e}")
 
 
@@ -717,12 +782,16 @@ def time_train_kernels(device, gen, card):
                 for part_ms, kname in parts[:8]:
                     log(f"  profile {name} B={b}: {part_ms:.4f} ms {kname[:90]}")
                 if name in RECOMPUTE_EPI:
-                    check_backward_profile(name, parts)
+                    check_profile(name, parts, set(range(11))
+                                  - RECOMPUTE_EPI[name])
+                elif name in SM90_PRODUCTS:
+                    check_profile(name, parts, FORWARD_STALE_EPI[name])
             if b == 32:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by,
                                   library_ms=library_ms)
         del att_y, ffn_y
+        check_replay_bits(b, p_ffn, x)
     return rows
 
 

@@ -17,14 +17,21 @@
 // cores), not bytes. The attention core (S <= 128, head_dim 64) is ~3% of the
 // operations.
 //
-// What the design does about it, first version:
-//   * bf16 products run on the tensor cores with mma.sync m16n8k16 (f32
+// What the design does about it:
+//   * the FFN's two bf16 products run on gemm_sm90.cuh's wgmma + TMA GEMM,
+//     reading the weights K-major as torch stores them (linear_product,
+//     shared with the training kernels): x.W1^T with bias and gelu on the
+//     ping-pong schedule, where one warpgroup's gelu epilogue overlaps the
+//     other's products, and inter.W2^T into the f32 residual on the tile
+//     that fills the card's waves best. The attention sub-block's
+//     bf16 products still run on the tensor cores with mma.sync m16n8k16 (f32
 //     accumulation) in a 128x128x32 block tile, 8 warps of 64x32, operands
 //     staged through a 3-stage cp.async ring and read with ldmatrix; rows
-//     padded so fragment loads are free of bank conflicts. f32 products use
-//     a 64x64 CUDA-core FMA tile (no TF32), so float32 stays float32. The
-//     GEMMs, the attention cores and the LayerNorm rows live in
-//     bert_block_common.cuh, shared with the training kernels.
+//     padded so fragment loads are free of bank conflicts (gemm_bf16_tc).
+//     f32 products use a 64x64 CUDA-core FMA tile (no TF32), so float32
+//     stays float32. The GEMMs, the attention cores and the LayerNorm rows
+//     live in bert_block_common.cuh and gemm_sm90.cuh, shared with the
+//     training kernels.
 //   * every epilogue is fused into its GEMM (bias, gelu, residual), so the
 //     q/k/v, the FFN intermediate and the pre-LN sum each cross device
 //     memory once; the pre-LN sum is f32 and a row kernel (one warp per row)
@@ -37,9 +44,11 @@
 //     fragments. Otherwise (f32, other head dims) one warp per query row on
 //     the CUDA cores, K and V of the head in shared memory as f32 (64 KB at
 //     S = 128: dynamic shared memory).
-// Not yet: TMA pipelines, wgmma, persistence.
+// Not yet: the attention sub-block's products on wgmma (gemm_bf16_tc), the
+// LayerNorm fused into the W2 epilogue.
 
 #include "bert_block_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -63,9 +72,9 @@ template <typename T>
 int ffn_impl(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
              const float* ln_g, const float* ln_b, T* inter, float* z, T* y, int M,
              int H, int I, float eps, cudaStream_t st) {
-  int err = launch_gemm<EPI_BIAS_GELU>(x, w1, M, I, H, H, H, epi(b1, nullptr, inter), st);
+  int err = linear_product<EPI_BIAS_GELU>(x, w1, M, I, H, epi(b1, nullptr, inter), st);
   if (err) return err;
-  err = launch_gemm<EPI_RESID_F32>(inter, w2, M, H, I, I, I, epi(b2, x, z), st);
+  err = linear_product<EPI_RESID_F32>(inter, w2, M, H, I, epi(b2, x, z), st);
   if (err) return err;
   return layer_norm<T>(z, ln_g, ln_b, y, M, H, eps, st);
 }

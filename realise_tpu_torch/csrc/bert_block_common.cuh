@@ -10,8 +10,8 @@
 //   reads W n-contiguous, a weight gradient dW = dY^T.X reads both operands
 //   row by row over the B*S rows. blockIdx.z splits K (each split writes
 //   its own float32 partial; a second pass sums them in a fixed order). In
-//   bf16 the backward takes them only for operands TMA cannot address;
-//   gemm_sm90.cuh runs the rest.
+//   bf16 the FFN products and the backward take them only for operands TMA
+//   cannot address; gemm_sm90.cuh runs the rest.
 // * attention_core / attention_core_tc: softmax(q.k^T * scale + mask) . v
 //   per (example, head), reading heads in the (B, S, 3H) layout, with the
 //   training path's dropout on the probabilities.
@@ -145,6 +145,22 @@ struct EpiArgs {
 constexpr float INV_SQRT2 = 0.7071067811865476f;
 constexpr float INV_SQRT2PI = 0.3989422804014327f;
 
+// Phi(v) = 0.5 (1 + erf(v / sqrt 2)); the exact gelu is v * Phi(v) in every
+// epilogue that computes it (EPI_BIAS_GELU, EPI_BIAS_T1_GELU), one expression,
+// so that the FFN backward's replayed gelu(t1) is the forward's bit for bit.
+// The Pallas kernel's (v * 0.5) * (1 + erf) is the same float32 value: the
+// halving is exact either way.
+__device__ __forceinline__ float gelu_cdf(float v) {
+  return 0.5f * (1.0f + erff(v * INV_SQRT2));
+}
+
+// EPI_RESID_F32_DROP's z = resid + (acc + bias) * keep, each operation
+// rounded on its own (no fused multiply-add), as the plain version's float32
+// steps.
+__device__ __forceinline__ float resid_drop(float resid, float acc, float bias, float keep) {
+  return __fadd_rn(resid, __fmul_rn(__fadd_rn(acc, bias), keep));
+}
+
 // out[m, n] from the f32 accumulator.
 template <typename T, int EPI>
 __device__ __forceinline__ void epi_store(const EpiArgs& e, int m, int n, int N,
@@ -158,27 +174,25 @@ __device__ __forceinline__ void epi_store(const EpiArgs& e, int m, int n, int N,
     static_cast<T*>(e.out)[idx] = from_f<T>(static_cast<const float*>(e.resid)[idx] + acc);
   } else if (EPI == EPI_GELU_GRAD) {
     const float t = to_f(static_cast<const T*>(e.resid)[idx]);
-    const float cdf = 0.5f * (1.0f + erff(t * INV_SQRT2));
+    const float cdf = gelu_cdf(t);
     const float phi = INV_SQRT2PI * expf(-0.5f * t * t);
     static_cast<T*>(e.out)[idx] = from_f<T>(acc * (cdf + t * phi));
   } else if (EPI == EPI_RESID_F32) {
     const float r = to_f(static_cast<const T*>(e.resid)[idx]);
     static_cast<float*>(e.out)[idx] = (r + e.bias[n]) + acc;
   } else if (EPI == EPI_RESID_F32_DROP) {
-    float o = acc + e.bias[n];
-    if (e.drop.on) o *= hidden_keep(e.drop, m, n, e.S, N);
-    static_cast<float*>(e.out)[idx] = to_f(static_cast<const T*>(e.resid)[idx]) + o;
+    const float keep = e.drop.on ? hidden_keep(e.drop, m, n, e.S, N) : 1.f;
+    static_cast<float*>(e.out)[idx] =
+        resid_drop(to_f(static_cast<const T*>(e.resid)[idx]), acc, e.bias[n], keep);
   } else {
     float v = round_to<T>(round_to<T>(acc) + round_to<T>(e.bias[n]));
     if (EPI == EPI_BIAS) {
       static_cast<T*>(e.out)[idx] = from_f<T>(v);
     } else if (EPI == EPI_BIAS_GELU) {
-      const float g = (v * 0.5f) * (1.0f + erff(v * INV_SQRT2));
-      static_cast<T*>(e.out)[idx] = from_f<T>(g);
+      static_cast<T*>(e.out)[idx] = from_f<T>(v * gelu_cdf(v));
     } else if (EPI == EPI_BIAS_T1_GELU) {
       static_cast<T*>(e.out)[idx] = from_f<T>(v);
-      const float cdf = 0.5f * (1.0f + erff(v * INV_SQRT2));
-      static_cast<T*>(e.out2)[idx] = from_f<T>(v * cdf);
+      static_cast<T*>(e.out2)[idx] = from_f<T>(v * gelu_cdf(v));
     } else {  // EPI_RESID_ROUND, EPI_RESID_ROUND_DROP
       if (EPI == EPI_RESID_ROUND_DROP && e.drop.on)
         v = round_to<T>(v * hidden_keep(e.drop, m, n, e.S, N));
@@ -336,13 +350,15 @@ __device__ __forceinline__ void tc_load_stage(uint16_t* base, const bf16* A, con
 // both exist and N is even.
 __device__ __forceinline__ bool epi_pair(int c, int N) { return c + 1 < N && (N & 1) == 0; }
 
-// The residual pair a data-gradient epilogue reads at (r, c), c + 1 on the
-// vector path (EPI_ADD_F32_ROUND: f32 dz; EPI_GELU_GRAD: t1), zeros for the
-// other modes: loaded apart from its use, so that a caller can start many
-// loads before it needs the first.
+// The residual pair an epilogue reads at (r, c), c + 1 on the vector path
+// (EPI_ADD_F32_ROUND: f32 dz; EPI_GELU_GRAD: t1; EPI_RESID_F32 and
+// EPI_RESID_F32_DROP: x), zeros for the other modes: loaded apart from its
+// use, so that a caller can start many loads before it needs the first.
 template <int EPI>
 __device__ __forceinline__ float2 epi_resid2(const EpiArgs& e, int r, int c, int M, int N) {
-  if ((EPI == EPI_ADD_F32_ROUND || EPI == EPI_GELU_GRAD) && r < M && epi_pair(c, N)) {
+  if ((EPI == EPI_ADD_F32_ROUND || EPI == EPI_GELU_GRAD || EPI == EPI_RESID_F32 ||
+       EPI == EPI_RESID_F32_DROP) &&
+      r < M && epi_pair(c, N)) {
     const size_t idx = (size_t)r * N + c;
     if (EPI == EPI_ADD_F32_ROUND)
       return *reinterpret_cast<const float2*>(static_cast<const float*>(e.resid) + idx);
@@ -353,8 +369,8 @@ __device__ __forceinline__ float2 epi_resid2(const EpiArgs& e, int r, int c, int
 }
 
 // Columns c, c + 1 of row r, `res` being epi_resid2 at the same place; vector
-// loads and stores on the pair path for every mode but the dropout ones
-// (whose keep multiplier is per element), with epi_store's arithmetic.
+// loads and stores on the pair path for every mode but EPI_RESID_ROUND_DROP,
+// with epi_store's arithmetic (the dropout keep multiplier per element).
 template <int EPI>
 __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M, int N,
                                            float a0, float a1, float2 res) {
@@ -370,43 +386,49 @@ __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M
       *out = __floats2bfloat162_rn(res.x + a0, res.y + a1);
     } else if (EPI == EPI_GELU_GRAD) {
       const float t0 = res.x, t1 = res.y;
-      const float cdf0 = 0.5f * (1.0f + erff(t0 * INV_SQRT2));
-      const float cdf1 = 0.5f * (1.0f + erff(t1 * INV_SQRT2));
+      const float cdf0 = gelu_cdf(t0), cdf1 = gelu_cdf(t1);
       const float phi0 = INV_SQRT2PI * expf(-0.5f * t0 * t0);
       const float phi1 = INV_SQRT2PI * expf(-0.5f * t1 * t1);
       *out = __floats2bfloat162_rn(a0 * (cdf0 + t0 * phi0), a1 * (cdf1 + t1 * phi1));
     } else {  // EPI_BIAS_T1_GELU
       const float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(e.bias[c]));
       const float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(e.bias[c + 1]));
-      const float cdf0 = 0.5f * (1.0f + erff(v0 * INV_SQRT2));
-      const float cdf1 = 0.5f * (1.0f + erff(v1 * INV_SQRT2));
       *out = __floats2bfloat162_rn(v0, v1);
       *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(e.out2) + idx) =
-          __floats2bfloat162_rn(v0 * cdf0, v1 * cdf1);
+          __floats2bfloat162_rn(v0 * gelu_cdf(v0), v1 * gelu_cdf(v1));
     }
+    return;
+  }
+  if (EPI == EPI_RESID_F32_DROP && epi_pair(c, N)) {
+    float k0 = 1.f, k1 = 1.f;
+    if (e.drop.on) {
+      const uint32_t base = site_base(e.drop.seed, e.drop.site, (uint32_t)(r / e.S), 0u);
+      k0 = keep_mult(e.drop, base, r % e.S, c, N);
+      k1 = keep_mult(e.drop, base, r % e.S, c + 1, N);
+    }
+    *reinterpret_cast<float2*>(static_cast<float*>(e.out) + (size_t)r * N + c) = make_float2(
+        resid_drop(res.x, a0, e.bias[c], k0), resid_drop(res.y, a1, e.bias[c + 1], k1));
     return;
   }
   if (EPI <= EPI_RESID_F32 && c + 1 < N && (N & 1) == 0) {
     const size_t idx = (size_t)r * N + c;
     const float b0 = e.bias[c], b1 = e.bias[c + 1];
-    if (EPI == EPI_RESID_F32 || EPI == EPI_RESID_ROUND) {
+    if (EPI == EPI_RESID_F32) {  // x preloaded by epi_resid2
+      *reinterpret_cast<float2*>(static_cast<float*>(e.out) + idx) =
+          make_float2((res.x + b0) + a0, (res.y + b1) + a1);
+    } else if (EPI == EPI_RESID_ROUND) {
       const __nv_bfloat162 x2 =
           *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(e.resid) + idx);
       float2 z;
-      if (EPI == EPI_RESID_F32) {
-        z.x = (__bfloat162float(x2.x) + b0) + a0;
-        z.y = (__bfloat162float(x2.y) + b1) + a1;
-      } else {
-        z.x = __bfloat162float(x2.x) + round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b0));
-        z.y = __bfloat162float(x2.y) + round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b1));
-      }
+      z.x = __bfloat162float(x2.x) + round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b0));
+      z.y = __bfloat162float(x2.y) + round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b1));
       *reinterpret_cast<float2*>(static_cast<float*>(e.out) + idx) = z;
     } else {
       float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b0));
       float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b1));
       if (EPI == EPI_BIAS_GELU) {
-        v0 = (v0 * 0.5f) * (1.0f + erff(v0 * INV_SQRT2));
-        v1 = (v1 * 0.5f) * (1.0f + erff(v1 * INV_SQRT2));
+        v0 *= gelu_cdf(v0);
+        v1 *= gelu_cdf(v1);
       }
       *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(e.out) + idx) =
           __floats2bfloat162_rn(v0, v1);

@@ -28,9 +28,15 @@
 //     16-byte aligned, row strides not a multiple of 8) take the mma.sync
 //     GEMM of bert_block_common.cuh instead, decided from the shape before
 //     the launch; float32 takes the CUDA-core GEMM.
-//   * the products that replay the forward (q/k/v, the out-projection and
-//     t1) run in the forward kernels' mma.sync GEMM (gemm_bf16_tc), so that
-//     the replayed values are the forward's bit for bit.
+//   * the FFN forward's two products run on gemm_sm90 with the weights read
+//     K-major (linear_product): x.W1^T with bias and gelu on the ping-pong
+//     schedule, so one warpgroup's epilogue overlaps the other's products;
+//     inter.W2^T into the f32 residual with the output dropout on the tile
+//     that fills the card's waves best. The FFN backward's t1 replay takes
+//     the W1 product's route with the same operands, so t1 and gelu(t1) are
+//     the forward's bit for bit. The attention products that replay its
+//     forward (q/k/v, the out-projection) run in the forward's mma.sync GEMM
+//     (gemm_bf16_tc) for the same reason.
 //   * the TPU kernels carry weight gradients in a grid-invariant accumulator
 //     from one sequential grid step to the next; here blocks run in no
 //     order, so a weight gradient is one GEMM over all rows, split along
@@ -45,8 +51,8 @@
 //     cores (attention_bwd_core_tc, below): ~10.5 MFLOP of mma.sync per
 //     (example, head), against the f32 CUDA-core loops of
 //     attention_bwd_core, which stays for float32 and other head dims.
-// Not yet: the forward products on wgmma, fusing the LayerNorm backward
-// into the GEMM epilogues.
+// Not yet: the attention forward's products on wgmma, fusing the LayerNorm
+// and its backward into the GEMM epilogues.
 
 #include "bert_block_common.cuh"
 #include "gemm_sm90.cuh"
@@ -140,8 +146,7 @@ int choose_splits(long tiles, int K, int slots) {
   double best_fill = 0.0;
   for (int s = 1; s <= MAX_SPLITS; ++s) {
     if (s > 1 && K / s < 256) break;
-    const long blocks = tiles * s;
-    const double fill = (double)blocks / (double)(((blocks + slots - 1) / slots) * slots);
+    const double fill = wave_fill(tiles * s, slots);
     if (fill > best_fill + 1e-9) {
       best_fill = fill;
       best = s;
@@ -163,11 +168,12 @@ int weight_grad(const T* A, const T* B, int M, int N, int K, float* out,
                                                   epi(nullptr, nullptr, out), st);
   } else {
     const bool sm90 = sm90_gemm_ok(A, B, M, N);
-    const int bm = sm90 ? G9_BM : TC_BM, bn = sm90 ? G9_BN : TC_BN;
+    const int bm = sm90 ? G9_BM : TC_BM, bn = sm90 ? G9Tile<false>::BN : TC_BN;
     const long tiles = (long)((M + bm - 1) / bm) * ((N + bn - 1) / bn);
     const int splits = choose_splits(tiles, K, sm90 ? sm_count() : 2 * sm_count());
     const EpiArgs e = epi(nullptr, nullptr, splits == 1 ? out : wsplit);
-    RT_TRY(sm90 ? launch_gemm_sm90<EPI_STORE_F32, true>(A, B, M, N, K, M, N, e, st, splits)
+    RT_TRY(sm90 ? launch_gemm_sm90<EPI_STORE_F32, true, false, false>(A, B, M, N, K, M, N, e, st,
+                                                                       splits)
                 : launch_gemm<EPI_STORE_F32, true, true>(A, B, M, N, K, M, N, e, st, splits));
     if (splits == 1) return 0;
     // The launchers round the split length up to whole k-tiles; count the
@@ -181,13 +187,14 @@ int weight_grad(const T* A, const T* B, int M, int N, int K, float* out,
 }
 
 // A data-gradient product C (M, N) = A . B, A k-contiguous and B
-// n-contiguous: gemm_sm90 for bf16 operands TMA can address, gemm_bf16_tc
-// for other bf16 operands, the CUDA-core GEMM for float32 (see the top).
+// n-contiguous: gemm_sm90 (cooperative) for bf16 operands TMA can address,
+// gemm_bf16_tc for other bf16 operands, the CUDA-core GEMM for float32 (see
+// the top).
 template <int EPI>
 int data_grad(const bf16* A, const bf16* B, int M, int N, int K, int lda, int ldb, EpiArgs e,
               cudaStream_t st) {
   if (sm90_gemm_ok(A, B, lda, ldb))
-    return launch_gemm_sm90<EPI, false>(A, B, M, N, K, lda, ldb, e, st);
+    return launch_gemm_sm90<EPI, false, false, false>(A, B, M, N, K, lda, ldb, e, st);
   return launch_gemm<EPI, false, true>(A, B, M, N, K, lda, ldb, e, st);
 }
 
@@ -817,10 +824,9 @@ template <typename T>
 int ffn_fwd_impl(const T* x, const T* w1, const float* b1, const T* w2, const float* b2,
                  const float* g, const float* beta, T* inter, float* z32, T* z, T* y, int M,
                  int S, int H, int I, float eps, const RtDropout& d, cudaStream_t st) {
-  RT_TRY(launch_gemm<EPI_BIAS_GELU>(x, w1, M, I, H, H, H, epi(b1, nullptr, inter), st));
-  RT_TRY(launch_gemm<EPI_RESID_F32_DROP>(
-      inter, w2, M, H, I, I, I, epi(b2, x, z32, nullptr, hidden_drop(d, SITE_FFN_OUT), S),
-      st));
+  RT_TRY(linear_product<EPI_BIAS_GELU>(x, w1, M, I, H, epi(b1, nullptr, inter), st));
+  RT_TRY(linear_product<EPI_RESID_F32_DROP>(
+      inter, w2, M, H, I, epi(b2, x, z32, nullptr, hidden_drop(d, SITE_FFN_OUT), S), st));
   return layer_norm<T>(z32, g, beta, y, M, H, eps, st, z);
 }
 
@@ -837,15 +843,36 @@ int ffn_bwd_impl(const T* x, const T* z, const T* dy, const T* w1, const float* 
   RT_TRY(colsum<float>(dnorm, M, H, part, dg, st));
   RT_TRY(colsum<T>(dy, M, H, part, dbeta, st));
   RT_TRY(colsum<float>(dout32, M, H, part, db2, st));
-  // t1 = round(x . W1) + b1 and gelu(t1) recomputed; dW2 = dout^T . gelu(t1).
-  RT_TRY(launch_gemm<EPI_BIAS_T1_GELU>(x, w1, M, I, H, H, H, epi(b1, nullptr, t1, inter),
-                                       st));
+  // t1 = round(x . W1) + b1 and gelu(t1) replayed on the forward's route;
+  // dW2 = dout^T . gelu(t1).
+  RT_TRY(linear_product<EPI_BIAS_T1_GELU>(x, w1, M, I, H, epi(b1, nullptr, t1, inter), st));
   RT_TRY(weight_grad<T>(dout, inter, H, I, M, dw2, wsplit, st));
   // dt1 = (dout . W2) * gelu'(t1); db1, dW1 = dt1^T . x; dx = dz + dt1 . W1.
   RT_TRY(data_grad<EPI_GELU_GRAD>(dout, w2, M, I, H, H, I, epi(nullptr, t1, dt1), st));
   RT_TRY(colsum<T>(dt1, M, I, part, db1, st));
   RT_TRY(weight_grad<T>(dt1, x, I, H, M, dw1, wsplit, st));
   return data_grad<EPI_ADD_F32_ROUND>(dt1, w1, M, H, I, I, H, epi(nullptr, dz, dx), st);
+}
+
+// One forward product of the FFN blocks alone, for tests and timing, on the
+// route the blocks take (linear_product): A (M, K) times a torch weight W
+// (N, K), with the epilogue `mode`: EPI_BIAS_GELU (out T = gelu(round(A.W^T)
+// + b)), EPI_RESID_F32 (out f32 = (resid + b) + A.W^T), EPI_RESID_F32_DROP
+// (out f32 = resid + (A.W^T + b) * keep, the FFN output site's dropout over
+// examples of S rows) or EPI_BIAS_T1_GELU (out T = t1 = round(A.W^T) + b, out2
+// T = gelu(t1)).
+template <typename T>
+int forward_gemm_impl(const T* a, const T* w, const float* bias, const T* resid, void* out,
+                      void* out2, int M, int N, int K, int S, int mode, const RtDropout& d,
+                      cudaStream_t st) {
+  const EpiArgs e = epi(bias, resid, out, out2, hidden_drop(d, SITE_FFN_OUT), S);
+  switch (mode) {
+    case EPI_BIAS_GELU: return linear_product<EPI_BIAS_GELU>(a, w, M, N, K, e, st);
+    case EPI_RESID_F32: return linear_product<EPI_RESID_F32>(a, w, M, N, K, e, st);
+    case EPI_RESID_F32_DROP: return linear_product<EPI_RESID_F32_DROP>(a, w, M, N, K, e, st);
+    case EPI_BIAS_T1_GELU: return linear_product<EPI_BIAS_T1_GELU>(a, w, M, N, K, e, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -883,6 +910,15 @@ extern "C" int rt_train_gemm(const void* a, const void* b, void* out, void* wspl
     return weight_grad<bf16>(A, B, M, N, K, static_cast<float*>(out),
                              static_cast<float*>(wsplit), st);
   return data_grad<EPI_ROUND>(A, B, M, N, K, K, N, epi(nullptr, nullptr, out), st);
+}
+
+extern "C" int rt_forward_gemm(const void* a, const void* w, const void* bias, const void* resid,
+                               void* out, void* out2, int M, int N, int K, int S, int mode,
+                               const RtDropout* d, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RT_DISPATCH(forward_gemm_impl, static_cast<const T*>(a), static_cast<const T*>(w),
+              static_cast<const float*>(bias), static_cast<const T*>(resid), out, out2, M, N, K,
+              S, mode, *d, st);
 }
 
 #define F(p) static_cast<const float*>(p)

@@ -1,37 +1,58 @@
-// Hopper GEMM for the products of the training backward (sm_90a): TMA
-// loads into a 128-byte-swizzled shared-memory ring, wgmma on the tensor
-// cores, accumulators in registers.
+// Hopper GEMM (sm_90a): TMA loads into a 128-byte-swizzled shared-memory
+// ring, wgmma on the tensor cores, accumulators in registers. It runs every
+// bf16 product of the FFN sub-blocks, serving and training, and the
+// backward-only products of the attention backward.
 //
-// C (M, N) = sum_k A(m, k) B(k, n), B stored n-contiguous ("B[k * ldb + n]",
-// wgmma's MN-major B, trans-b = 1) in both layouts the backward needs:
-//   * A k-contiguous ("A[m * lda + k]", K-major, trans-a = 0): dY . W, the
-//     data gradients dctx, dt1 and dx;
-//   * A_T, A m-contiguous ("A[k * lda + m]", MN-major, trans-a = 1): a weight
+// C (M, N) = sum_k A(m, k) B(k, n) in the layouts those products need:
+//   * A k-contiguous ("A[m * lda + k]", K-major, trans-a = 0), or A_T, A
+//     m-contiguous ("A[k * lda + m]", MN-major, trans-a = 1): a weight
 //     gradient dW = dY^T . X over the B*S rows, split along K into float32
 //     partials (EPI_STORE_F32 at out + z * M * N) that the caller sums in a
 //     fixed order. No atomics: two runs give the same bits.
+//   * B n-contiguous ("B[k * ldb + n]", MN-major, trans-b = 1): dY . W, the
+//     data gradients dctx, dt1 and dx; or B_K, B k-contiguous ("B[n * ldb +
+//     k]", K-major, trans-b = 0): X . W^T for torch's (out, in) weight, the
+//     forward products x.W1^T and inter.W2^T and the FFN backward's t1
+//     replay (linear_product, below).
 // The epilogue is bert_block_common.cuh's epi_store2, fed from the
 // accumulator fragment (each thread holds column pairs of rows g and g + 8
-// of its warp's 16), so the rounding points are those of gemm_bf16_tc.
+// of its warp's 16), so the rounding points are those of gemm_bf16_tc; the
+// bf16 outputs of the gelu epilogues are computed the same way (epi_words)
+// but leave through a transpose within each quad as 16-byte
+// stores that fill whole 32-byte sectors (a pair store fills half of one:
+// on an H100 the FFN's x.W1^T with gelu at B*S = 32768 took 0.535 ms with
+// pair stores, 0.406 ms with these).
 //
 // What bounds it: at the training shapes (M = B*S = 32768, H = 768, I =
-// 3072) every product does 24-155 GFLOP on a few hundred MB: operations, on
-// the bf16 tensor cores, which only wgmma drives at their full rate.
+// 3072) every product does 24-155 GFLOP on a few hundred MB, and at the
+// serving shapes (M = 4096) 19 GFLOP on ~30 MB: operations, on the bf16
+// tensor cores, which only wgmma drives at their full rate.
 //
 // Design: one persistent block per SM walks over the output tiles (n
-// fastest, then m, then the K split). Warpgroups 0 and 1 each own 64 rows of
-// a 128 x 256 tile and run wgmma.m64n256k16 (128 f32 accumulators a thread)
-// on descriptors into the ring; warpgroup 2 gives its registers up
+// fastest, then m, then the K split); warpgroup 2 gives its registers up
 // (setmaxnreg) and one of its threads keeps the ring full with
 // cp.async.bulk.tensor (TMA, 128-byte swizzle, zero fill past the edges),
-// a full and an empty mbarrier per stage. The producer runs ahead into the
-// next tile while the consumers store the last one.
-//
-// Tile 128 x 256 x 64, 4 stages: a k-tile is 48 KB for 4.2 MFLOP (87
-// FLOP per byte read from L2, against 64 for 128 x 128), the 64-deep box is
-// the 128-byte swizzle span, and 4 stages (192 KB) are what fits: one block
-// per SM, hence persistent. N = 768 and 3072 are whole multiples of 256, and
-// B*S of 128.
+// a full and an empty mbarrier per stage; warpgroups 0 and 1 consume. Two
+// schedules share that ring (192 KB, one block per SM):
+//   * cooperative (PP = false): both consumer warpgroups work on one 128 x
+//     256 tile, 64 rows each, with wgmma.m64n256k16 (128 f32 accumulators a
+//     thread), 4 stages of 128 x 256 x 64 (48 KB for 4.2 MFLOP, 87 FLOP per
+//     byte read from L2). Tensor cores idle while the tile's epilogue runs;
+//     the long-K products with light epilogues (the weight gradients, dctx,
+//     dx) lose little to that, and the K split exists only here.
+//   * ping-pong (PP = true): each consumer warpgroup owns a whole 128 x 128
+//     tile (two m64n128k16 rows, again 128 accumulators a thread) and the two
+//     take the block's tiles in turn, 6 stages of 128 x 128 x 64 (32 KB). An
+//     ordered pair of named barriers hands the tensor cores from one
+//     warpgroup to the other when its last wgmma of a tile is issued, so one
+//     warpgroup's epilogue (an erf per element for gelu, the dropout hash)
+//     runs while the other's products do. The producer fills the ring in the
+//     order the warpgroups take the tiles. This is the schedule of the FFN's
+//     x.W1^T and its replay: K = 768 (12 k-tiles) for a gelu epilogue
+//     longer than the products, and of any product whose 128 x 256 tiles
+//     would leave more of the card idle in their last wave.
+// The 64-deep box is the 128-byte swizzle span. N = 768 and 3072 are whole
+// multiples of 128 and 256, and B*S of 128.
 //
 // Where it does not apply: TMA needs 16-byte-aligned bases and row strides
 // that are multiples of 8 bf16 elements. sm90_gemm_ok decides that from the
@@ -46,19 +67,32 @@
 
 namespace {
 
-constexpr int G9_BM = 128, G9_BN = 256, G9_BK = 64, G9_STAGES = 4;
+constexpr int G9_BM = 128, G9_BK = 64;
 constexpr int G9_THREADS = 3 * 128;                   // 2 consumer warpgroups, 1 producer
-constexpr int G9_CONSUMER_WARPS = 8;                  // arrivals on an empty barrier
 constexpr int G9_BOX = 64;                            // 64 bf16 = the 128-byte swizzle span
 constexpr int G9_BOX_BYTES = G9_BOX * G9_BK * 2;      // one 64 x 64 box: 8 KB
 constexpr int G9_A_BYTES = G9_BM * G9_BK * 2;         // 16 KB
-constexpr int G9_STAGE_BYTES = G9_A_BYTES + G9_BN * G9_BK * 2;  // 48 KB
+constexpr int G9_RING_BYTES = 192 * 1024;
+constexpr int G9_MAX_STAGES = 8;
 constexpr int G9_ATOM = 1024;                         // 8 rows of 128 bytes: the swizzle atom
-constexpr size_t G9_SMEM =
-    (size_t)G9_STAGES * G9_STAGE_BYTES + G9_ATOM + 2 * G9_STAGES * sizeof(uint64_t);
+constexpr size_t G9_SMEM = (size_t)G9_RING_BYTES + G9_ATOM + 2 * G9_MAX_STAGES * sizeof(uint64_t);
 // A wait longer than this is a broken pipeline: trap, so the launch fails
 // with an error instead of holding the card.
 constexpr unsigned long long G9_WAIT_NS = 20000000000ull;
+// Named barriers 1 and 2 (0 is __syncthreads'): a consumer warpgroup's turn
+// on the tensor cores in the ping-pong schedule; both consumer warpgroups
+// take part.
+constexpr int G9_TURN_BAR = 1, G9_CONSUMER_THREADS = 256;
+
+// The tile of a schedule (see the top of the file).
+template <bool PP>
+struct G9Tile {
+  static constexpr int BN = PP ? 128 : 256;
+  static constexpr int STAGE_BYTES = G9_A_BYTES + BN * G9_BK * 2;
+  static constexpr int STAGES = G9_RING_BYTES / STAGE_BYTES;
+  static constexpr int EMPTY_ARRIVALS = PP ? 4 : 8;  // the warps that read a stage
+  static_assert(STAGES <= G9_MAX_STAGES && STAGE_BYTES % G9_ATOM == 0, "ring layout");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -144,9 +178,16 @@ __device__ __forceinline__ void fence_acc(float (&d)[128]) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // d (the warpgroup's 64 x 256 f32 fragment) += A (64 x 16) . B (16 x 256),
-// B MN-major, A MN-major when TA = 1.
-template <int TA>
+// A MN-major when TA = 1, B MN-major when TB = 1 (else K-major).
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -159,7 +200,7 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
-      "}, %128, %129, p, 1, 1, %131, 1;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -176,26 +217,76 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1), "n"(TA));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d[OFF .. OFF + 63] (one warpgroup's 64 x 128 f32 fragment) += A (64 x 16)
+// . B (16 x 128), A K-major, B K-major (TB = 0) or MN-major (TB = 1).
+template <int TB, int OFF>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
+}
+
+// The packed bf16 outputs of columns c, c + 1 of the gelu epilogues, with
+// epi_store2's arithmetic: (gelu(t1), unused) for EPI_BIAS_GELU, (t1,
+// gelu(t1)) for EPI_BIAS_T1_GELU.
+template <int EPI>
+__device__ __forceinline__ uint2 epi_words(const EpiArgs& e, int c, float a0, float a1) {
+  const float2 b = *reinterpret_cast<const float2*>(e.bias + c);
+  const float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b.x));
+  const float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b.y));
+  const uint32_t gelu = pack_bf16x2(v0 * gelu_cdf(v0), v1 * gelu_cdf(v1));
+  return EPI == EPI_BIAS_GELU ? make_uint2(gelu, 0u) : make_uint2(pack_bf16x2(v0, v1), gelu);
+}
+
+// A 4 x 4 transpose of 32-bit words across the 4 threads of a quad: thread
+// t4 gives w.x .. w.w and gets word t4 of thread j in place j.
+__device__ __forceinline__ uint4 quad_transpose(uint4 w, int t4) {
+  const bool hi = t4 & 2, odd = t4 & 1;
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? w.x : w.z, 2);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? w.y : w.w, 2);
+  const uint32_t b0 = hi ? r0 : w.x, b1 = hi ? r1 : w.y;
+  const uint32_t b2 = hi ? w.z : r0, b3 = hi ? w.w : r1;
+  const uint32_t q0 = __shfl_xor_sync(0xffffffffu, odd ? b0 : b1, 1);
+  const uint32_t q1 = __shfl_xor_sync(0xffffffffu, odd ? b2 : b3, 1);
+  return make_uint4(odd ? q0 : b0, odd ? b1 : q0, odd ? q1 : b2, odd ? b3 : q1);
 }
 
 // C = A . B (see the top of the file) for the output tiles of units
 // blockIdx.x, + gridDim.x, ...; unit u is K split u / (tiles_m * tiles_n),
-// k rows [z * k_chunk, min(K, (z + 1) * k_chunk)).
-template <int EPI, bool A_T>
+// k rows [z * k_chunk, min(K, (z + 1) * k_chunk)). PP: one split.
+template <int EPI, bool A_T, bool B_K, bool PP>
 __global__ void __launch_bounds__(G9_THREADS, 1)
 gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
           int M, int N, int K, int k_chunk, int tiles_m, int tiles_n, int units, EpiArgs e) {
+  using Tile = G9Tile<PP>;
+  static_assert(!(PP && A_T), "the ping-pong schedule takes a K-major A");
   extern __shared__ __align__(16) unsigned char g9_raw[];
   // The swizzle pattern repeats every 1024 bytes of shared address: align the
   // ring to it.
   unsigned char* smem = g9_raw + ((G9_ATOM - (smem_u32(g9_raw) & (G9_ATOM - 1))) & (G9_ATOM - 1));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G9_STAGES * G9_STAGE_BYTES);
-  uint64_t* empty = full + G9_STAGES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tile::STAGES * Tile::STAGE_BYTES);
+  uint64_t* empty = full + Tile::STAGES;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < G9_STAGES; ++s) {
+    for (int s = 0; s < Tile::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], G9_CONSUMER_WARPS);
+      mbar_init(&empty[s], Tile::EMPTY_ARRIVALS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -210,99 +301,172 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
       uint32_t phase = 0;
       for (int u = blockIdx.x; u < units; u += gridDim.x) {
         const int z = u / per_split, rem = u - z * per_split;
-        const int bm = (rem / tiles_n) * G9_BM, bn = (rem % tiles_n) * G9_BN;
+        const int bm = (rem / tiles_n) * G9_BM, bn = (rem % tiles_n) * Tile::BN;
         const int k_end = min(K, (z + 1) * k_chunk);
         for (int k = z * k_chunk; k < k_end; k += G9_BK) {
           mbar_wait(&empty[stage], phase ^ 1);
-          unsigned char* a = smem + stage * G9_STAGE_BYTES;
+          unsigned char* a = smem + stage * Tile::STAGE_BYTES;
           unsigned char* b = a + G9_A_BYTES;
-          mbar_expect_tx(&full[stage], G9_STAGE_BYTES);
-          if (A_T) {  // two 64-wide boxes of M, one per consumer warpgroup
+          mbar_expect_tx(&full[stage], Tile::STAGE_BYTES);
+          if (A_T) {  // two 64-wide boxes of M, one per 64 rows
             tma_load(a, &map_a, &full[stage], bm, k);
             tma_load(a + G9_BOX_BYTES, &map_a, &full[stage], bm + G9_BOX, k);
           } else {    // 128 rows of 64 k
             tma_load(a, &map_a, &full[stage], k, bm);
           }
+          if (B_K) {  // BN rows of 64 k
+            tma_load(b, &map_b, &full[stage], k, bn);
+          } else {    // 64-wide boxes of N
 #pragma unroll
-          for (int j = 0; j < G9_BN / G9_BOX; ++j)
-            tma_load(b + j * G9_BOX_BYTES, &map_b, &full[stage], bn + j * G9_BOX, k);
-          if (++stage == G9_STAGES) {
+            for (int j = 0; j < Tile::BN / G9_BOX; ++j)
+              tma_load(b + j * G9_BOX_BYTES, &map_b, &full[stage], bn + j * G9_BOX, k);
+          }
+          if (++stage == Tile::STAGES) {
             stage = 0;
             phase ^= 1;
           }
         }
       }
     }
-  } else {  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  } else {  // consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int warp = (threadIdx.x >> 5) & 3, g = lane >> 2, t4 = lane & 3;
+    // This block's tiles are i = 0, 1, ... (unit blockIdx.x + i * gridDim.x);
+    // cooperative: both warpgroups take each; ping-pong: warpgroup wg takes
+    // i = wg, wg + 2, ..., and tile i begins at ring position i * nk.
+    const int tiles = (units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+    // The gelu epilogues' bf16 outputs leave 16 bytes a thread (below) where
+    // the row stride and the bases allow it.
+    constexpr bool WIDE = EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_T1_GELU;
+    const bool wide = WIDE && (N & 7) == 0 &&
+                      ((reinterpret_cast<uintptr_t>(e.out) |
+                        (EPI == EPI_BIAS_T1_GELU ? reinterpret_cast<uintptr_t>(e.out2) : 0)) &
+                       15) == 0 &&
+                      (reinterpret_cast<uintptr_t>(e.bias) & 7) == 0;
     float acc[128];
-    int stage = 0;
-    uint32_t phase = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int pos = 0;  // ring position of the tile's first k-tile
+    for (int i = PP ? wg : 0; i < tiles; i += PP ? 2 : 1) {
+      const int u = blockIdx.x + i * gridDim.x;
       const int z = u / per_split, rem = u - z * per_split;
-      const int bm = (rem / tiles_n) * G9_BM, bn = (rem % tiles_n) * G9_BN;
-      const int k_end = min(K, (z + 1) * k_chunk);
+      const int bm = (rem / tiles_n) * G9_BM, bn = (rem % tiles_n) * Tile::BN;
+      const int k_begin = z * k_chunk, k_end = min(K, k_begin + k_chunk);
+      const int nk = (k_end - k_begin + G9_BK - 1) / G9_BK;
+      if (PP) pos = i * nk;
+      int stage = pos % Tile::STAGES;
+      uint32_t phase = (pos / Tile::STAGES) & 1;
+      if (!PP) pos += nk;
 #pragma unroll
-      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+      // Ping-pong: wait for the other warpgroup to have issued tile i - 1.
+      if (PP && i > 0) named_bar_sync(G9_TURN_BAR + wg, G9_CONSUMER_THREADS);
       int prev = -1;  // the stage whose wgmma group is still in flight
-      for (int k = z * k_chunk; k < k_end; k += G9_BK) {
+      for (int kt = 0; kt < nk; ++kt) {
         mbar_wait(&full[stage], phase);
-        // This warpgroup's 64 rows of A sit 8 KB apart in both layouts
-        // (64 rows x 128 bytes, or one 64-wide box of M).
-        const unsigned char* a = smem + stage * G9_STAGE_BYTES + wg * G9_BOX_BYTES;
-        const unsigned char* b = smem + stage * G9_STAGE_BYTES + G9_A_BYTES;
+        // Cooperative: this warpgroup's 64 rows of A sit 8 KB in, in both
+        // layouts (64 rows x 128 bytes, or one 64-wide box of M).
+        const unsigned char* a = smem + stage * Tile::STAGE_BYTES + (PP ? 0 : wg * G9_BOX_BYTES);
+        const unsigned char* b = smem + stage * Tile::STAGE_BYTES + G9_A_BYTES;
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < G9_BK / 16; ++kk) {
           // k16 steps: 32 bytes along a K-major row, two 8-row atoms (2 KB)
           // down an MN-major tile.
-          const uint64_t da = A_T ? g9_desc(a + kk * 2 * G9_ATOM, G9_BOX_BYTES, G9_ATOM)
-                                  : g9_desc(a + kk * 32, 16, G9_ATOM);
-          const uint64_t db = g9_desc(b + kk * 2 * G9_ATOM, G9_BOX_BYTES, G9_ATOM);
-          wgmma_m64n256k16<A_T ? 1 : 0>(acc, da, db);
+          const uint64_t db = B_K ? g9_desc(b + kk * 32, 16, G9_ATOM)
+                                  : g9_desc(b + kk * 2 * G9_ATOM, G9_BOX_BYTES, G9_ATOM);
+          if constexpr (PP) {  // rows 0-63 and 64-127 of the warpgroup's tile
+            wgmma_m64n128k16<B_K ? 0 : 1, 0>(acc, g9_desc(a + kk * 32, 16, G9_ATOM), db);
+            wgmma_m64n128k16<B_K ? 0 : 1, 64>(
+                acc, g9_desc(a + G9_BOX_BYTES + kk * 32, 16, G9_ATOM), db);
+          } else {
+            const uint64_t da = A_T ? g9_desc(a + kk * 2 * G9_ATOM, G9_BOX_BYTES, G9_ATOM)
+                                    : g9_desc(a + kk * 32, 16, G9_ATOM);
+            wgmma_m64n256k16<A_T ? 1 : 0, B_K ? 0 : 1>(acc, da, db);
+          }
         }
         wgmma_commit();
         fence_acc(acc);
         wgmma_wait<1>();  // the previous k-tile's products are done: free its stage
         if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
         prev = stage;
-        if (++stage == G9_STAGES) {
+        if (++stage == Tile::STAGES) {
           stage = 0;
           phase ^= 1;
         }
       }
+      // Ping-pong: the tile's products are all issued; the other warpgroup
+      // may issue its next tile's while this one finishes and stores.
+      if (PP && i + 1 < tiles) named_bar_arrive(G9_TURN_BAR + (wg ^ 1), G9_CONSUMER_THREADS);
       wgmma_wait<0>();
       fence_acc(acc);
       if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
       EpiArgs eu = e;
       if (EPI == EPI_STORE_F32) eu.out = static_cast<float*>(e.out) + (size_t)z * M * N;
-      // The fragment holds column pairs j * 8 + 2 t4 of rows r and r + 8
-      // (acc[4 j] ..). They are stored in 4 chunks of 8 pairs: each chunk
-      // first loads every residual it reads, so the loads overlap instead of
-      // each waiting behind the last store. The chunk loop is not unrolled
-      // (a fully unrolled gelu' epilogue outgrows the instruction cache);
-      // the next chunk's accumulators move to the front instead, so every
-      // register index stays a constant.
-      const int r = bm + wg * 64 + warp * 16 + g;
+      // The fragment holds, for each 64-row half of the warpgroup's rows and
+      // each 8-column group j of the tile, column pair j * 8 + 2 t4 of rows r
+      // and r + 8 (acc[4 j] ..; the ping-pong tile's second half from
+      // acc[64]). They are stored in 4 chunks of 8 groups. The chunk loop is
+      // not unrolled (a fully unrolled gelu' epilogue outgrows the
+      // instruction cache); the next chunk's accumulators move to the front
+      // instead, so every register index stays a constant.
+      constexpr int GROUPS = Tile::BN / 8;  // 8-column groups per 64-row half
+      const int r0 = bm + (PP ? 0 : wg * 64) + warp * 16 + g;
 #pragma unroll 1
       for (int j0 = 0; j0 < 32; j0 += 8) {
-        float2 res[8][2];
+        const int r = r0 + (j0 / GROUPS) * 64, c0 = bn + (j0 % GROUPS) * 8;
+        if (WIDE && wide) {
+          // Blocks of 4 groups (32 columns): a quad's 4 x 4 words are
+          // transposed so that each thread holds 8 consecutive columns of one
+          // group, and a warp's 16-byte stores fill whole 32-byte sectors.
+          // A block past N takes epi_store2.
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = bn + (j0 + j) * 8 + t4 * 2;
-          res[j][0] = epi_resid2<EPI>(eu, r, c, M, N);
-          res[j][1] = epi_resid2<EPI>(eu, r + 8, c, M, N);
+          for (int q = 0; q < 8; q += 4) {
+            const int cb = c0 + q * 8;
+            if (cb + 32 <= N) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                uint2 w[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  w[j] = epi_words<EPI>(eu, cb + j * 8 + t4 * 2, acc[4 * (q + j) + 2 * h],
+                                        acc[4 * (q + j) + 2 * h + 1]);
+                const size_t idx = (size_t)(r + 8 * h) * N + cb + t4 * 8;
+                const uint4 o = quad_transpose(make_uint4(w[0].x, w[1].x, w[2].x, w[3].x), t4);
+                if (r + 8 * h < M) *reinterpret_cast<uint4*>(static_cast<bf16*>(eu.out) + idx) = o;
+                if (EPI == EPI_BIAS_T1_GELU) {
+                  const uint4 o2 =
+                      quad_transpose(make_uint4(w[0].y, w[1].y, w[2].y, w[3].y), t4);
+                  if (r + 8 * h < M)
+                    *reinterpret_cast<uint4*>(static_cast<bf16*>(eu.out2) + idx) = o2;
+                }
+              }
+            } else {
+#pragma unroll
+              for (int j = q; j < q + 4; ++j) {
+                const int c = c0 + j * 8 + t4 * 2;
+                epi_store2<EPI>(eu, r, c, M, N, acc[4 * j], acc[4 * j + 1]);
+                epi_store2<EPI>(eu, r + 8, c, M, N, acc[4 * j + 2], acc[4 * j + 3]);
+              }
+            }
+          }
+        } else {
+          // Each chunk first loads every residual it reads, so the loads
+          // overlap instead of each waiting behind the last store.
+          float2 res[8][2];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            res[j][0] = epi_resid2<EPI>(eu, r, c0 + j * 8 + t4 * 2, M, N);
+            res[j][1] = epi_resid2<EPI>(eu, r + 8, c0 + j * 8 + t4 * 2, M, N);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = c0 + j * 8 + t4 * 2;
+            epi_store2<EPI>(eu, r, c, M, N, acc[4 * j], acc[4 * j + 1], res[j][0]);
+            epi_store2<EPI>(eu, r + 8, c, M, N, acc[4 * j + 2], acc[4 * j + 3], res[j][1]);
+          }
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = bn + (j0 + j) * 8 + t4 * 2;
-          epi_store2<EPI>(eu, r, c, M, N, acc[4 * j], acc[4 * j + 1], res[j][0]);
-          epi_store2<EPI>(eu, r + 8, c, M, N, acc[4 * j + 2], acc[4 * j + 3], res[j][1]);
-        }
-#pragma unroll
-        for (int i = 0; i < 96; ++i) acc[i] = acc[i + 32];
+        for (int j = 0; j < 96; ++j) acc[j] = acc[j + 32];
       }
     }
   }
@@ -373,26 +537,65 @@ inline int split_chunk(int K, int splits, int bk) {
   return ((K + splits - 1) / splits + bk - 1) / bk * bk;
 }
 
-// C (M, N) = A . B with A's layout per A_T; splits > 1 (EPI_STORE_F32 only)
+// C (M, N) = A . B with A's layout per A_T and B's per B_K, on the schedule
+// PP (see the top of the file); splits > 1 (EPI_STORE_F32, cooperative only)
 // writes that many partials of M x N.
-template <int EPI, bool A_T>
+template <int EPI, bool A_T, bool B_K, bool PP>
 int launch_gemm_sm90(const bf16* A, const bf16* B, int M, int N, int K, int lda, int ldb,
                      EpiArgs e, cudaStream_t st, int splits = 1) {
+  using Tile = G9Tile<PP>;
+  if (PP && splits != 1) return (int)cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   int err = A_T ? tensor_map(&ma, A, M, K, lda, G9_BK) : tensor_map(&ma, A, K, M, lda, G9_BM);
   if (err) return err;
-  err = tensor_map(&mb, B, N, K, ldb, G9_BK);
+  err = B_K ? tensor_map(&mb, B, K, N, ldb, Tile::BN) : tensor_map(&mb, B, N, K, ldb, G9_BK);
   if (err) return err;
-  err = (int)cudaFuncSetAttribute(gemm_sm90<EPI, A_T>,
+  err = (int)cudaFuncSetAttribute(gemm_sm90<EPI, A_T, B_K, PP>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G9_SMEM);
   if (err) return err;
   const int k_chunk = split_chunk(K, splits, G9_BK);
-  const int tiles_m = (M + G9_BM - 1) / G9_BM, tiles_n = (N + G9_BN - 1) / G9_BN;
+  const int tiles_m = (M + G9_BM - 1) / G9_BM, tiles_n = (N + Tile::BN - 1) / Tile::BN;
   const int units = tiles_m * tiles_n * ((K + k_chunk - 1) / k_chunk);
   const int blocks = units < sm_count() ? units : sm_count();
-  gemm_sm90<EPI, A_T><<<blocks, G9_THREADS, G9_SMEM, st>>>(
+  gemm_sm90<EPI, A_T, B_K, PP><<<blocks, G9_THREADS, G9_SMEM, st>>>(
       ma, mb, M, N, K, k_chunk, tiles_m, tiles_n, units, e);
   return (int)cudaGetLastError();
+}
+
+// The serving and training FFN's products X . W^T for a torch (out, in)
+// weight W (N x K): x.W1^T (EPI_BIAS_GELU), inter.W2^T (EPI_RESID_F32,
+// EPI_RESID_F32_DROP) and the FFN backward's t1 replay (EPI_BIAS_T1_GELU).
+// One route for all of them, decided from the shape and the pointers before
+// the launch: gemm_sm90 with a K-major B where TMA can address the operands,
+// else gemm_bf16_tc. The gelu epilogues (an erf per element, about as long
+// as the products at K = 768) take the ping-pong schedule, which overlaps
+// them with the other warpgroup's products. The residual epilogues take the
+// cooperative 128 x 256 tile, which reads fewer bytes per product, unless
+// the 128 x 128 tiles fill the card's waves better (wave_fill). The train
+// forward and its replay see the same M, N, K and operands, so they take the
+// same route and t1 is the forward's bit for bit.
+inline double wave_fill(long tiles, int slots) {
+  return (double)tiles / (double)(((tiles + slots - 1) / slots) * slots);
+}
+
+template <int EPI>
+int linear_product(const bf16* X, const bf16* W, int M, int N, int K, EpiArgs e,
+                   cudaStream_t st) {
+  if (!sm90_gemm_ok(X, W, K, K)) return launch_gemm<EPI>(X, W, M, N, K, K, K, e, st);
+  constexpr bool gelu = EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_T1_GELU;
+  const long rows = (M + G9_BM - 1) / G9_BM;
+  const long coop = rows * ((N + G9Tile<false>::BN - 1) / G9Tile<false>::BN);
+  const long pp = rows * ((N + G9Tile<true>::BN - 1) / G9Tile<true>::BN);
+  if (gelu || wave_fill(coop, sm_count()) < wave_fill(pp, sm_count()))
+    return launch_gemm_sm90<EPI, false, true, true>(X, W, M, N, K, K, K, e, st);
+  return launch_gemm_sm90<EPI, false, true, false>(X, W, M, N, K, K, K, e, st);
+}
+
+// float32 stays on the CUDA-core GEMM.
+template <int EPI>
+int linear_product(const float* X, const float* W, int M, int N, int K, EpiArgs e,
+                   cudaStream_t st) {
+  return launch_gemm<EPI>(X, W, M, N, K, K, K, e, st);
 }
 
 }  // namespace

@@ -14,7 +14,9 @@ Counterparts of ``realise_tpu/ops/pallas/bert_block_train.py``
   rounded z, recomputes t1 = x·W1 + b1, then dx and every gradient).
 
 :func:`backward_gemm` runs one product of the two backward kernels alone
-(their Hopper GEMM, ``csrc/gemm_sm90.cuh``), for tests and timing.
+(their Hopper GEMM, ``csrc/gemm_sm90.cuh``), and :func:`forward_gemm` one
+product of the FFN blocks (``ffn_block`` and both FFN train kernels) on the
+route they take, for tests and timing.
 
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel (CUDA C++ for sm_90a, ``csrc/bert_block_train.cu``) or
@@ -53,6 +55,12 @@ from realise_tpu_torch.ops.kernels.bert_block import _check, _check_x, _stream
 from realise_tpu_torch.ops.layers import M32, dense, layer_norm, mix32, mul32
 
 SITE_PROBS, SITE_ATTN_OUT, SITE_FFN_OUT = 1, 2, 3
+# Epilogues of the FFN products (csrc/bert_block_common.cuh EPI_*): x·W1ᵀ
+# with bias and gelu; inter·W2ᵀ into the float32 residual, without and with
+# the output dropout; the backward's t1 replay (t1 and gelu(t1)).
+EPI_BIAS_GELU, EPI_RESID_F32, EPI_RESID_F32_DROP, EPI_BIAS_T1_GELU = 1, 3, 5, 9
+FORWARD_MODES = (EPI_BIAS_GELU, EPI_RESID_F32, EPI_RESID_F32_DROP,
+                 EPI_BIAS_T1_GELU)
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 
@@ -302,6 +310,8 @@ def _lib() -> ctypes.CDLL:
             fn.restype = i
         lib.rt_train_gemm.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.rt_train_gemm.restype = i
+        lib.rt_forward_gemm.argtypes = [p] * 6 + [i] * 5 + [d, i, p]
+        lib.rt_forward_gemm.restype = i
         for fn in (lib.rt_train_colsum_scratch, lib.rt_train_split_scratch):
             fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
         _LIB = lib
@@ -398,6 +408,76 @@ def backward_gemm(a: torch.Tensor, b: torch.Tensor,
     _run("rt_train_gemm", *_ptrs(a, b, out, wsplit), m, n, k, int(transpose_a),
          _stream(a.device))
     return out
+
+
+def forward_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       mode: int, resid=None, seed: int = 0,
+                       rows_per_example: int = 1, h_rate: float = 0.0):
+    """One FFN product a·wᵀ (a (M, K), w a torch (N, K) weight) with the
+    epilogue ``mode`` (:data:`FORWARD_MODES`), in the blocks' rounding:
+    EPI_BIAS_GELU → gelu(round(a·wᵀ) + b); EPI_RESID_F32 → float32 (resid +
+    b) + a·wᵀ; EPI_RESID_F32_DROP → float32 resid + (a·wᵀ + b) · keep (the
+    FFN output site, examples of ``rows_per_example`` rows); EPI_BIAS_T1_GELU
+    → (t1, gelu(t1)) with t1 = round(a·wᵀ) + b."""
+    dt = a.dtype
+    if mode in (EPI_BIAS_GELU, EPI_BIAS_T1_GELU):
+        t1 = dense(a, w, bias)
+        t = t1.float()
+        inter = ((t * 0.5) * (1.0 + torch.erf(t * _INV_SQRT2))).to(dt)
+        return inter if mode == EPI_BIAS_GELU else (t1, inter)
+    part = torch.matmul(a.float(), w.float().t())
+    if mode == EPI_RESID_F32:
+        return (resid.float() + bias.float()) + part
+    if mode != EPI_RESID_F32_DROP:
+        raise ValueError(f"mode {mode} is not one of {FORWARD_MODES}")
+    out = part + bias.float()
+    if h_rate > 0.0:
+        m, n = out.shape
+        s = rows_per_example
+        out = out * block_keep_mask(seed, SITE_FFN_OUT, m // s, s, n,
+                                    1.0 - h_rate, a.device).reshape(m, n)
+    return resid.float() + out
+
+
+def forward_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                 mode: int, resid=None, seed: int = 0,
+                 rows_per_example: int = 1, h_rate: float = 0.0):
+    """:func:`forward_gemm_plain`'s product on the route the FFN blocks take
+    (``csrc/gemm_sm90.cuh`` linear_product). For tests and timing; the blocks
+    never call it."""
+    if a.device.type == "cpu":
+        return forward_gemm_plain(a, w, bias, mode, resid, seed,
+                                  rows_per_example, h_rate)
+    if a.device.type != "cuda":
+        raise ValueError(f"the kernels run on CUDA tensors, got {a.device}")
+    if mode not in FORWARD_MODES:
+        raise ValueError(f"mode {mode} is not one of {FORWARD_MODES}")
+    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1]:
+        raise ValueError(f"shapes {tuple(a.shape)} and {tuple(w.shape)} do not "
+                         f"multiply as a·wᵀ")
+    m, k = a.shape
+    n = w.shape[0]
+    dev, dt, f32 = a.device, a.dtype, torch.float32
+    if dt not in _DTYPE_CODE:
+        raise ValueError(f"dtype {dt} not in {tuple(_DTYPE_CODE)}")
+    if m % rows_per_example:
+        raise ValueError(f"{m} rows are not whole examples of {rows_per_example}")
+    _check("a", a, (m, k), dt, dev)
+    _check("w", w, (n, k), dt, dev)
+    _check("bias", bias, (n,), f32, dev)
+    with_resid = mode in (EPI_RESID_F32, EPI_RESID_F32_DROP)
+    if with_resid:
+        _check("resid", resid, (m, n), dt, dev)
+    out = torch.empty((m, n), dtype=f32 if with_resid else dt, device=dev)
+    out2 = torch.empty((m, n), dtype=dt, device=dev) \
+        if mode == EPI_BIAS_T1_GELU else out
+    _run("rt_forward_gemm",
+         *_ptrs(a, w, bias), resid.data_ptr() if with_resid else None,
+         *_ptrs(out, out2),
+         m, n, k, rows_per_example, mode,
+         ctypes.byref(_dropout_args(seed, 0.0, h_rate)), _DTYPE_CODE[dt],
+         _stream(dev))
+    return (out, out2) if mode == EPI_BIAS_T1_GELU else out
 
 
 # ---------------------------------------------------------- the wrappers

@@ -321,3 +321,56 @@ def test_backward_gemm_layouts_match_a_float_product(cuda_device, transpose_a,
     assert got.shape == want.shape
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= GEMM_REL[transpose_a]
+
+
+def _forward_operands(m, n, k, seed=13):
+    gen = torch.Generator().manual_seed(seed)
+    a = torch.randn((m, k), generator=gen)
+    w = torch.randn((n, k), generator=gen) * k ** -0.5
+    bias = torch.randn((n,), generator=gen) * 0.1
+    resid = torch.randn((m, n), generator=gen)
+    return a, w, bias, resid
+
+
+@pytest.mark.parametrize("mode", tbt.FORWARD_MODES,
+                         ids=lambda m: f"mode{m}")
+@pytest.mark.parametrize("m, n, k", [
+    (37, 200, 768),      # ragged M and N
+    (32, 3072, 768),     # one sentence of bucket 32: the smallest serving M
+    (1100, 200, 136),    # ragged M, N and K past their tiles
+    (4096, 3072, 768),   # the W1 product at B=32, S=128
+    (4096, 768, 3072),   # the W2 product at B=32, S=128
+    (4000, 700, 1000),   # ragged; the residual epilogues on the 128 x 256 tile
+], ids=["ragged", "M32", "ragged-K", "W1", "W2", "ragged-coop"])
+def test_forward_gemm_matches_a_float_product(cuda_device, mode, m, n, k):
+    """Each FFN forward product (x·W1ᵀ with gelu, inter·W2ᵀ into the f32
+    residual with and without the output dropout, the backward's t1 replay)
+    on the blocks' route, K-major weights, against its plain version: bf16
+    outputs within GEMM_REL's one-rounding limit, float32 ones within its
+    summation-order limit."""
+    a, w, bias, resid = (t.to(cuda_device) for t in _forward_operands(m, n, k))
+    a, w, resid = (t.to(torch.bfloat16) for t in (a, w, resid))
+    args = (a, w, bias, mode, resid, 77, 1 if m % 32 else 32, 0.1)
+    got, want = tbt.forward_gemm(*args), tbt.forward_gemm_plain(*args)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w_ in zip(got, want):
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        assert _rel_err(g, w_) <= GEMM_REL[w_.dtype == torch.float32], mode
+
+
+@pytest.mark.parametrize("m", [4096, 32768])
+def test_forward_gelu_equals_the_replay_bit_for_bit(cuda_device, m):
+    """The FFN forward's gelu(t1) (the W1 product's epilogue) and the
+    backward's replay of it are the same bits at the serving (B=32) and
+    training (B=256) row counts: one route, one accumulation order, one
+    gelu expression."""
+    a, w, bias, _ = _forward_operands(m, 3072, 768, seed=m)
+    a, w = (t.to(cuda_device, torch.bfloat16) for t in (a, w))
+    bias = bias.to(cuda_device)
+    inter = tbt.forward_gemm(a, w, bias, tbt.EPI_BIAS_GELU)
+    t1, replay = tbt.forward_gemm(a, w, bias, tbt.EPI_BIAS_T1_GELU)
+    torch.cuda.synchronize()
+    assert torch.equal(inter, replay)
+    assert _rel_err(t1, tbt.dense(a, w, bias)) <= GEMM_REL[False]

@@ -56,5 +56,30 @@ def test_train_build_hash_covers_the_hopper_gemm_header():
     names = [p.name for p in _build.sources("bert_block_train")]
     assert names[0] == "bert_block_train.cu"
     assert {"gemm_sm90.cuh", "bert_block_common.cuh"} <= set(names)
-    assert [p.name for p in _build.sources("bert_block")] == [
-        "bert_block.cu", "bert_block_common.cuh"]
+    assert len(names) == len(set(names)) == 3
+
+
+def test_serving_build_hash_covers_the_hopper_gemm_header():
+    """The serving kernels' FFN products run on the Hopper GEMM too: the
+    serving library's source list (which its build hash reads) holds that
+    header and the shared one, each once."""
+    from realise_tpu_torch.ops.kernels import _build
+
+    names = [p.name for p in _build.sources("bert_block")]
+    assert names[0] == "bert_block.cu"
+    assert sorted(names[1:]) == ["bert_block_common.cuh", "gemm_sm90.cuh"]
+
+
+def test_build_hash_follows_an_included_header(tmp_path, monkeypatch):
+    """Editing a header that a source includes only through another header
+    changes that source's build hash (and so rebuilds its library)."""
+    from realise_tpu_torch.ops.kernels import _build
+
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("int x;\n")
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    before = _build._paths("k")[3]
+    (tmp_path / "b.cuh").write_text("int y;\n")
+    assert _build._paths("k")[3] != before
+    assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]

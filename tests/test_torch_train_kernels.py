@@ -321,3 +321,84 @@ def test_backward_gemm_plain_is_the_product(transpose_a):
         np.testing.assert_array_equal(
             got.float().numpy(),
             torch.tensor(want, dtype=torch.float32).to(torch.bfloat16).float().numpy())
+
+
+# --------------------------------------------- one FFN product alone
+def _ffn_case(dtype, seed=8):
+    jl = _jax_layer(seed, 16, 32)
+    _, ffn = _port_params(jl)
+    p = tbt.pack_ffn([ffn[k].detach() for k in tbt.FFN_PARAMS], dtype)
+    x = torch.tensor(_inputs(2, 8, 16, seed=seed)[0]).to(dtype)
+    return jl, p, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_forward_gemm_plain_composes_the_train_forward(dtype, rate):
+    """The one-product entry point's plain version, W1 product (dense +
+    the exact gelu) then W2 product (the float32 residual with the output
+    dropout), is ffn_train_forward_plain's z bit for bit, and its t1 replay
+    is dense's t1 with the same gelu bits."""
+    _, p, x = _ffn_case(dtype)
+    xf = x.reshape(16, 16)
+    inter = tbt.forward_gemm(xf, p["w1"], p["b1"], tbt.EPI_BIAS_GELU)
+    t1, replay = tbt.forward_gemm(xf, p["w1"], p["b1"], tbt.EPI_BIAS_T1_GELU)
+    assert inter.dtype == t1.dtype == dtype
+    assert torch.equal(inter, replay)
+    assert torch.equal(t1, tlayers.dense(xf, p["w1"], p["b1"]))
+    z = tbt.forward_gemm(inter, p["w2"], p["b2"], tbt.EPI_RESID_F32_DROP, xf,
+                         seed=5, rows_per_example=8, h_rate=rate)
+    assert z.dtype == torch.float32
+    want_y, want_z = tbt.ffn_train_forward_plain(x, p, 5, 1e-12, rate)
+    assert torch.equal(z.to(dtype), want_z.reshape(16, 16))
+    y = tlayers.layer_norm(z, p["ln_weight"], p["ln_bias"], 1e-12).to(dtype)
+    assert torch.equal(y, want_y.reshape(16, 16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_gemm_plain_composes_ffn_block(dtype):
+    """W1 then W2 without dropout is ffn_block_plain: the residual form bit
+    for bit, the erf gelu within one rounding of F.gelu's (the serving plain
+    version's; the two evaluate erf differently)."""
+    from realise_tpu_torch.ops.kernels import bert_block as tbb
+
+    _, p, x = _ffn_case(dtype, seed=9)
+    xf = x.reshape(16, 16)
+    inter = tbt.forward_gemm(xf, p["w1"], p["b1"], tbt.EPI_BIAS_GELU)
+    ref = torch.nn.functional.gelu(tlayers.dense(xf, p["w1"], p["b1"]).float())
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -22
+    assert ((inter.float() - ref).abs() <= ulp * ref.abs() + 1e-6).all()
+    z = tbt.forward_gemm(ref.to(dtype), p["w2"], p["b2"], tbt.EPI_RESID_F32, xf)
+    y = tlayers.layer_norm(z, p["ln_weight"], p["ln_bias"], 1e-12).to(dtype)
+    assert torch.equal(y, tbb.ffn_block_plain(x, p).reshape(16, 16))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_forward_gemm_plain_matches_the_pallas_ffn_forward(rate):
+    """The two products composed, then the LayerNorm, against the JAX
+    package's interpret-mode Pallas FFN train forward (y and the rounded z)
+    on the same weights and inputs, float32."""
+    jl, p, x = _ffn_case(torch.float32, seed=10)
+    xf = x.reshape(16, 16)
+    inter = tbt.forward_gemm(xf, p["w1"], p["b1"], tbt.EPI_BIAS_GELU)
+    z = tbt.forward_gemm(inter, p["w2"], p["b2"], tbt.EPI_RESID_F32_DROP, xf,
+                         seed=6, rows_per_example=8, h_rate=rate)
+    y = tlayers.layer_norm(z, p["ln_weight"], p["ln_bias"], 1e-12)
+    want_y, want_z = jbt._ffn_fwd_impl(jnp.asarray(x.numpy()), jl["ffn"],
+                                       jnp.array([6], jnp.int32), 1e-12, rate,
+                                       True)[:2]
+    np.testing.assert_allclose(z.numpy(), np.asarray(want_z).reshape(16, 16),
+                               atol=ATOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y).reshape(16, 16),
+                               atol=ATOL)
+
+
+def test_forward_gemm_refuses_other_devices_and_modes():
+    """A tensor neither on the CPU nor on CUDA raises before any launch; an
+    epilogue that is not an FFN product's raises on the plain path too."""
+    _, p, x = _ffn_case(torch.float32)
+    meta = torch.empty((4, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tbt.forward_gemm(meta, meta, meta[0], tbt.EPI_BIAS_GELU)
+    with pytest.raises(ValueError, match="mode 7"):
+        tbt.forward_gemm(x.reshape(16, 16), p["w2"].t().contiguous(), p["b1"], 7)

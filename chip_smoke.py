@@ -14,8 +14,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    unchanged);
 4. times at the serving shapes (S=128, B=32 and 256, bf16): each kernel, its
    plain version, one library yardstick the port never calls, and the bound;
-   the B=256 profile of ``ffn_block`` must show both products on the Hopper
-   GEMM with K-major weights and none on ``gemm_bf16_tc``;
+   the B=256 profile of each block must show its products on the Hopper GEMM
+   with K-major weights and none on ``gemm_bf16_tc``, and the attention
+   block its persistent tensor-core core;
 5. serving at full width: the published arch3 preset with seeded random
    weights and glyphs, saved as a port checkpoint and served by
    ``realise_tpu_torch.serving.Corrector`` on the card for requests of 1, 8
@@ -35,13 +36,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    is held against its plain version with phase 6's bf16 limit, two calls of
    each backward must give the same bits, the B=256 profile of each
    backward must show its Hopper GEMM (``gemm_sm90``) products, the
-   attention backward its tensor-core core, and no ``gemm_bf16_tc`` product
-   but the ones that replay the attention forward, and the FFN train
-   forward's B=256 profile both its products on the Hopper GEMM; the FFN
-   forward's gelu(t1) and the backward's replay of it must be the same bits
-   at B=32 and 256; then the Hopper GEMM alone at the B=256 training shapes
-   (dWqkv, FFN dx, and the FFN forward's W1 and W2 products): time, TFLOP/s
-   and ``torch.matmul``'s time on the same inputs;
+   attention backward its tensor-core cores, and no ``gemm_bf16_tc``
+   product, and each train forward's B=256 profile its products on the
+   Hopper GEMM (the attention forward its persistent core too); the FFN
+   forward's gelu(t1) and the backward's replay of it, and the attention
+   forward's q/k/v, ctx and pre-LN z32 and the backward's replay of them,
+   must be the same bits at B=32 and 256; then the Hopper GEMM alone at the
+   B=256 training shapes (dWqkv, FFN dx, and the forward products q/k/v,
+   the out-projection with dropout, W1 and W2): time, TFLOP/s and
+   ``torch.matmul``'s time on the same inputs;
 8. training at full width: the published arch3 preset in bfloat16 at its
    published dropout (0.1), seeded random weights and glyphs, synthetic
    sentences featurized at bucket 128, ``realise_tpu_torch.training.Trainer``
@@ -98,31 +101,40 @@ TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 1.5e-3
 TRAIN_RATE = 0.1  # the published dropout of both sites
 # The gemm_bf16_tc products a bf16 train backward still runs (by epilogue
-# mode, bert_block_common.cuh): the ones that replay the attention forward,
-# so that the replayed q/k/v and z are the forward's bit for bit (EPI_BIAS
-# and EPI_RESID_ROUND_DROP). Every other product takes gemm_sm90, the FFN's
-# t1 replay on the FFN forward's own route.
-RECOMPUTE_EPI = {"attention_train_backward": {0, 4}, "ffn_train_backward": set()}
-# The gemm_sm90 products (gemm_sm90<EPI, A MN-major, B K-major, ping-pong>)
-# each bf16 FFN kernel and train backward must run: the weight gradients
+# mode, bert_block_common.cuh): none. Every product takes gemm_sm90, the
+# replays of the forward (the attention's q/k/v and out-projection, the
+# FFN's t1) on the forward's own routes, so that the replayed values are the
+# forward's bit for bit.
+RECOMPUTE_EPI = {"attention_train_backward": set(), "ffn_train_backward": set()}
+# The products (gemm_sm90<EPI, A MN-major, B K-major, ping-pong>) and cores
+# each bf16 block kernel must run at B=256: the weight gradients
 # (EPI_STORE_F32, A MN-major), dctx (EPI_ROUND), dt1 (EPI_GELU_GRAD) and dx
-# (EPI_ADD_F32_ROUND) on the cooperative schedule; the FFN's x.W1^T
-# (EPI_BIAS_GELU, its replay EPI_BIAS_T1_GELU) on the ping-pong schedule and,
-# at B=256, its inter.W2^T (EPI_RESID_F32, EPI_RESID_F32_DROP) on the
-# cooperative one, both with K-major weights.
+# (EPI_ADD_F32_ROUND) on the cooperative schedule; with K-major weights,
+# the FFN's x.W1^T (EPI_BIAS_GELU, its replay EPI_BIAS_T1_GELU) on the
+# ping-pong schedule, its inter.W2^T (EPI_RESID_F32, EPI_RESID_F32_DROP) on
+# the cooperative one, the attention's x.Wqkv^T (EPI_BIAS) and ctx.Wo^T
+# (EPI_RESID_ROUND, EPI_RESID_ROUND_DROP) on the schedules
+# tools/gemm_sm90_probe.py measured fastest; the persistent attention core
+# (forward and the backward's replay) and the attention backward core.
+QKV = "gemm_sm90<0, false, true, "
+CORE = "attention_fwd_core_tc<"
 SM90_PRODUCTS = {
+    "attention_block": (QKV, "gemm_sm90<2, false, true, ", CORE),
     "ffn_block": ("gemm_sm90<1, false, true, true>", "gemm_sm90<3, false, true, false>"),
+    "attention_train_forward": (QKV, "gemm_sm90<4, false, true, ", CORE),
     "ffn_train_forward": ("gemm_sm90<1, false, true, true>",
                           "gemm_sm90<5, false, true, false>"),
-    "attention_train_backward": ("gemm_sm90<6, true, false, false>",
+    "attention_train_backward": (QKV, "gemm_sm90<4, false, true, ", CORE,
+                                 "gemm_sm90<6, true, false, false>",
                                  "gemm_sm90<7, false, false, false>",
                                  "gemm_sm90<8, false, false, false>", "attention_bwd_core_tc<"),
     "ffn_train_backward": ("gemm_sm90<6, true, false, false>",
                            "gemm_sm90<9, false, true, true>",
                            "gemm_sm90<10, false, false, false>",
                            "gemm_sm90<8, false, false, false>")}
-# The gemm_bf16_tc products each FFN forward kernel used to run, by mode.
-FORWARD_STALE_EPI = {"ffn_block": {1, 3}, "ffn_train_forward": {1, 5}}
+# The gemm_bf16_tc products each forward block kernel used to run, by mode.
+FORWARD_STALE_EPI = {"attention_block": {0, 2}, "ffn_block": {1, 3},
+                     "attention_train_forward": {0, 4}, "ffn_train_forward": {1, 5}}
 # The backward GEMM alone against an f32 product of the same bf16 inputs,
 # relative to the largest |value|: a float32 weight gradient differs in the
 # order of its sums only; a bf16 data gradient by one rounding, 2^-8 of a
@@ -608,14 +620,15 @@ def check_deterministic(name, b, kern):
 
 
 def check_profile(name, parts, stale_epi):
-    """The B=256 profile of a bf16 FFN kernel or train backward shows each of
-    its Hopper GEMM products (and the tensor-core attention backward core),
-    and no ``attention_bwd_core`` or ``gemm_bf16_tc`` product of an epilogue
-    mode in ``stale_epi``."""
+    """The B=256 profile of a bf16 block kernel shows each of its Hopper GEMM
+    products and tensor-core attention cores, and no CUDA-core attention
+    core, no earlier non-persistent ``attention_core_tc``, and no
+    ``gemm_bf16_tc`` product of an epilogue mode in ``stale_epi``."""
     names = [k for _, k in parts]
     if not names:
         fail(f"{name}: the profiler recorded no device time")
-    stale = [k for k in names if re.search(r"attention_bwd_core<", k)]
+    stale = [k for k in names
+             if re.search(r"attention_(bwd_)?core<|attention_core_tc<", k)]
     for k in names:
         mode = re.search(r"gemm_bf16_tc<(\d+)", k)
         if mode and int(mode.group(1)) in stale_epi:
@@ -644,12 +657,34 @@ def check_replay_bits(b, p_ffn, x):
         fail(f"the FFN backward's replayed gelu(t1) differs from the forward's at B={b}")
 
 
+def check_attention_replay_bits(b, p_att, x, dy, bias):
+    """The attention train forward's q/k/v, ctx and pre-LN z32 and the
+    backward's recompute of them (the same routes and core launcher) are the
+    same bits, dropout 0.1 on both sites."""
+    import torch
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+
+    fwd, bwd = {}, {}
+    tbt.attention_train_forward(x, p_att, bias, 4321, HEADS, 1e-12, TRAIN_RATE,
+                                TRAIN_RATE, scratch=fwd)
+    tbt.attention_train_backward(x, dy, p_att, bias, 4321, HEADS, 1e-12,
+                                 TRAIN_RATE, TRAIN_RATE, scratch=bwd)
+    same = {k: torch.equal(fwd[k], bwd[k]) for k in ("qkv", "ctx", "z32")}
+    log(f"check attention replay bf16 B={b}: q/k/v, ctx and z32 of the backward "
+        f"equal the forward's bit for bit: {same}")
+    if not all(same.values()):
+        fail(f"the attention backward's replay differs from the forward's at B={b}")
+
+
 def time_backward_gemm(device, gen, card):
-    """The Hopper GEMM alone at four products of the B=256, S=128 training
+    """The Hopper GEMM alone at six products of the B=256, S=128 training
     shapes: dWqkv = dqkvᵀ·x (both operands MN-major, float32 split-K
-    partials), the FFN's dx = dt1·W1 (A K-major, bf16 out), and the FFN
-    forward's x·W1ᵀ with bias and gelu (ping-pong) and inter·W2ᵀ into the
-    float32 residual with dropout 0.1 (cooperative), K-major weights."""
+    partials), the FFN's dx = dt1·W1 (A K-major, bf16 out), and, with K-major
+    weights on the blocks' route, the attention's x·Wqkvᵀ with its bias and
+    ctx·Woᵀ into the float32 residual with dropout 0.1, the FFN's x·W1ᵀ with
+    bias and gelu and inter·W2ᵀ into the float32 residual with dropout
+    0.1."""
     import torch
 
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
@@ -679,6 +714,8 @@ def time_backward_gemm(device, gen, card):
             fail(f"gemm_sm90 {label}: relative error {err:.3e}")
     x = torch.randn((m, H), generator=gen).to(device, torch.bfloat16)
     for label, mode, k, n in (
+            ("attention q/k/v x.Wqkv^T + bqkv", tbt.EPI_BIAS, H, 3 * H),
+            ("attention out x + drop(ctx.Wo^T + bo)", tbt.EPI_RESID_ROUND_DROP, H, H),
             ("FFN W1 gelu(x.W1^T + b1)", tbt.EPI_BIAS_GELU, H, INTER),
             ("FFN W2 x + drop(inter.W2^T + b2)", tbt.EPI_RESID_F32_DROP, INTER, H)):
         a = torch.randn((m, k), generator=gen).to(device, torch.bfloat16)
@@ -686,7 +723,7 @@ def time_backward_gemm(device, gen, card):
         bias = (torch.randn((n,), generator=gen) * 0.1).to(device)
         args = (a, w, bias, mode, x if n == H else None, 4321, 128, TRAIN_RATE)
         got, want = tbt.forward_gemm(*args), tbt.forward_gemm_plain(*args)
-        f32 = want.dtype == torch.float32
+        f32 = mode == tbt.EPI_RESID_F32_DROP  # no bf16 rounding on the way
         err = ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
         del got, want
         ms = time_ms(lambda: tbt.forward_gemm(*args), flush)
@@ -792,6 +829,7 @@ def time_train_kernels(device, gen, card):
                                   library_ms=library_ms)
         del att_y, ffn_y
         check_replay_bits(b, p_ffn, x)
+        check_attention_replay_bits(b, p_att, x, dy, bias)
     return rows
 
 

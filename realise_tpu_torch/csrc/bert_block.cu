@@ -18,34 +18,34 @@
 // operations.
 //
 // What the design does about it:
-//   * the FFN's two bf16 products run on gemm_sm90.cuh's wgmma + TMA GEMM,
+//   * every bf16 weight product runs on gemm_sm90.cuh's wgmma + TMA GEMM,
 //     reading the weights K-major as torch stores them (linear_product,
 //     shared with the training kernels): x.W1^T with bias and gelu on the
 //     ping-pong schedule, where one warpgroup's gelu epilogue overlaps the
-//     other's products, and inter.W2^T into the f32 residual on the tile
-//     that fills the card's waves best. The attention sub-block's
-//     bf16 products still run on the tensor cores with mma.sync m16n8k16 (f32
-//     accumulation) in a 128x128x32 block tile, 8 warps of 64x32, operands
-//     staged through a 3-stage cp.async ring and read with ldmatrix; rows
-//     padded so fragment loads are free of bank conflicts (gemm_bf16_tc).
-//     f32 products use a 64x64 CUDA-core FMA tile (no TF32), so float32
-//     stays float32. The GEMMs, the attention cores and the LayerNorm rows
-//     live in bert_block_common.cuh and gemm_sm90.cuh, shared with the
-//     training kernels.
+//     other's products; inter.W2^T into the f32 residual, x.Wqkv^T with its
+//     bias (16-byte stores) and ctx.Wo^T into the f32 residual on the schedule
+//     that tools/gemm_sm90_probe.py measured fastest for their shapes.
+//     Operands TMA cannot address take the mma.sync GEMM (gemm_bf16_tc,
+//     128x128x32 tiles, a 3-stage cp.async ring, ldmatrix); f32 products a
+//     64x64 CUDA-core FMA tile (no TF32), so float32 stays float32. The
+//     GEMMs, the attention cores and the LayerNorm rows live in
+//     bert_block_common.cuh and gemm_sm90.cuh, shared with the training
+//     kernels.
 //   * every epilogue is fused into its GEMM (bias, gelu, residual), so the
 //     q/k/v, the FFN intermediate and the pre-LN sum each cross device
 //     memory once; the pre-LN sum is f32 and a row kernel (one warp per row)
 //     finishes the LayerNorm over the whole H-wide row.
 //   * the attention core reads q/k/v in their natural (B, S, 3H) layout (a
 //     head is a 64-column window, no transpose in device memory). In bf16 at
-//     head_dim 64 it runs on the tensor cores: one block per (example, head,
-//     64 queries), all S <= 128 keys at once, the softmax in registers and
-//     the rounded probabilities fed to P.V straight from the score
-//     fragments. Otherwise (f32, other head dims) one warp per query row on
-//     the CUDA cores, K and V of the head in shared memory as f32 (64 KB at
-//     S = 128: dynamic shared memory).
-// Not yet: the attention sub-block's products on wgmma (gemm_bf16_tc), the
-// LayerNorm fused into the W2 epilogue.
+//     head_dim 64 it runs on the tensor cores in persistent blocks that walk
+//     over the (example, head) pairs: 8 warps cover all S <= 128 query rows,
+//     so K and V are staged once per pair, and cp.async stages the next pair
+//     while the warps work on this one; the softmax stays in registers and
+//     the rounded probabilities feed P.V straight from the score fragments.
+//     Otherwise (f32, other head dims) one warp per query row on the CUDA
+//     cores, K and V of the head in shared memory as f32 (64 KB at S = 128:
+//     dynamic shared memory).
+// Not yet: the LayerNorm fused into the residual epilogues.
 
 #include "bert_block_common.cuh"
 #include "gemm_sm90.cuh"
@@ -59,11 +59,11 @@ int attention_impl(const T* x, const T* wqkv, const float* bqkv, const T* wo,
                    int H, int nh, float scale, float eps, cudaStream_t st) {
   const int M = B * S, D = H / nh;
   if (S > AT_MAX_S || D > AT_MAX_D || D * nh != H) return (int)cudaErrorInvalidValue;
-  int err = launch_gemm<EPI_BIAS>(x, wqkv, M, 3 * H, H, H, H, epi(bqkv, nullptr, qkv), st);
+  int err = linear_product<EPI_BIAS>(x, wqkv, M, 3 * H, H, epi(bqkv, nullptr, qkv), st);
   if (err) return err;
   err = attention_core_launch<T>(qkv, mask, ctx, B, S, H, nh, scale, Drop{}, st);
   if (err) return err;
-  err = launch_gemm<EPI_RESID_ROUND>(ctx, wo, M, H, H, H, H, epi(bo, x, z), st);
+  err = linear_product<EPI_RESID_ROUND>(ctx, wo, M, H, H, epi(bo, x, z), st);
   if (err) return err;
   return layer_norm<T>(z, ln_g, ln_b, y, M, H, eps, st);
 }

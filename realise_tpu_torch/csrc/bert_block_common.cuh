@@ -10,11 +10,12 @@
 //   reads W n-contiguous, a weight gradient dW = dY^T.X reads both operands
 //   row by row over the B*S rows. blockIdx.z splits K (each split writes
 //   its own float32 partial; a second pass sums them in a fixed order). In
-//   bf16 the FFN products and the backward take them only for operands TMA
-//   cannot address; gemm_sm90.cuh runs the rest.
-// * attention_core / attention_core_tc: softmax(q.k^T * scale + mask) . v
+//   bf16 every product takes gemm_bf16_tc only for operands TMA cannot
+//   address; gemm_sm90.cuh runs the rest.
+// * attention_core / attention_fwd_core_tc: softmax(q.k^T * scale + mask) . v
 //   per (example, head), reading heads in the (B, S, 3H) layout, with the
-//   training path's dropout on the probabilities.
+//   training path's dropout on the probabilities; the second is the
+//   persistent tensor-core core of bf16 at head_dim 64.
 // * layer_norm_rows: the LayerNorm of an f32 pre-LN sum, one warp per row.
 // * The dropout hash of realise_tpu/ops/pallas/bert_block_train.py
 //   (_mix, _site_base, _keep_mask), bit for bit in uint32 arithmetic.
@@ -118,6 +119,29 @@ __device__ __forceinline__ float hidden_keep(const Drop& d, int m, int c, int S,
   return keep_mult(d, base, m % S, c, cols);
 }
 
+// The dropout stream of one row of a hidden site: its example's stream id
+// and the row's index in the example, computed once per row.
+struct RowDrop {
+  uint32_t base;
+  int row;
+};
+
+// keep_mult of columns c, c + 1 (c even) of one row, the sample index and
+// its half of the columns found once for the pair: both columns lie in the
+// same half when cols % 256 == 0.
+__device__ __forceinline__ float2 keep_mult2(const Drop& d, RowDrop rd, int c, int cols) {
+  const int half = cols >> 1;
+  const bool two = (cols & 255) == 0, hi = two && c >= half;
+  const uint32_t i = two ? (uint32_t)rd.row * (uint32_t)half + (uint32_t)(hi ? c - half : c)
+                         : (uint32_t)rd.row * (uint32_t)cols + (uint32_t)c;
+  const uint32_t b0 = fmix32(rd.base ^ fmix32(i)), b1 = fmix32(rd.base ^ fmix32(i + 1u));
+  if (two) {
+    const uint32_t s0 = hi ? b0 >> 16 : b0 & 0xFFFFu, s1 = hi ? b1 >> 16 : b1 & 0xFFFFu;
+    return make_float2(s0 < d.thr16 ? d.scale : 0.f, s1 < d.thr16 ? d.scale : 0.f);
+  }
+  return make_float2((b0 >> 8) < d.thr24 ? d.scale : 0.f, (b1 >> 8) < d.thr24 ? d.scale : 0.f);
+}
+
 // ---------------------------------------------------------------- epilogues
 enum {
   EPI_BIAS = 0,         // out T = round(round(acc) + round(bias))
@@ -154,11 +178,26 @@ __device__ __forceinline__ float gelu_cdf(float v) {
   return 0.5f * (1.0f + erff(v * INV_SQRT2));
 }
 
-// EPI_RESID_F32_DROP's z = resid + (acc + bias) * keep, each operation
-// rounded on its own (no fused multiply-add), as the plain version's float32
-// steps.
-__device__ __forceinline__ float resid_drop(float resid, float acc, float bias, float keep) {
-  return __fadd_rn(resid, __fmul_rn(__fadd_rn(acc, bias), keep));
+// The modes whose f32 output is a residual sum (EPI_RESID_*), and those of
+// them with a hidden-site dropout.
+__host__ __device__ constexpr bool epi_resid(int epi) {
+  return epi >= EPI_RESID_ROUND && epi <= EPI_RESID_F32_DROP;
+}
+__host__ __device__ constexpr bool epi_drops(int epi) {
+  return epi == EPI_RESID_ROUND_DROP || epi == EPI_RESID_F32_DROP;
+}
+
+// One element z of the EPI_RESID_* modes from its residual x, accumulator,
+// bias and keep multiplier (1 without dropout). EPI_RESID_F32_DROP's z = x +
+// (acc + bias) * keep rounds each operation on its own (no fused
+// multiply-add), as the plain version's float32 steps.
+template <typename T, int EPI>
+__device__ __forceinline__ float resid_out(float x, float acc, float bias, float keep) {
+  if (EPI == EPI_RESID_F32) return (x + bias) + acc;
+  if (EPI == EPI_RESID_F32_DROP) return __fadd_rn(x, __fmul_rn(__fadd_rn(acc, bias), keep));
+  float v = round_to<T>(round_to<T>(acc) + round_to<T>(bias));
+  if (EPI == EPI_RESID_ROUND_DROP) v = round_to<T>(v * keep);
+  return x + v;
 }
 
 // out[m, n] from the f32 accumulator.
@@ -177,27 +216,19 @@ __device__ __forceinline__ void epi_store(const EpiArgs& e, int m, int n, int N,
     const float cdf = gelu_cdf(t);
     const float phi = INV_SQRT2PI * expf(-0.5f * t * t);
     static_cast<T*>(e.out)[idx] = from_f<T>(acc * (cdf + t * phi));
-  } else if (EPI == EPI_RESID_F32) {
-    const float r = to_f(static_cast<const T*>(e.resid)[idx]);
-    static_cast<float*>(e.out)[idx] = (r + e.bias[n]) + acc;
-  } else if (EPI == EPI_RESID_F32_DROP) {
-    const float keep = e.drop.on ? hidden_keep(e.drop, m, n, e.S, N) : 1.f;
+  } else if (epi_resid(EPI)) {
+    const float keep = epi_drops(EPI) && e.drop.on ? hidden_keep(e.drop, m, n, e.S, N) : 1.f;
     static_cast<float*>(e.out)[idx] =
-        resid_drop(to_f(static_cast<const T*>(e.resid)[idx]), acc, e.bias[n], keep);
+        resid_out<T, EPI>(to_f(static_cast<const T*>(e.resid)[idx]), acc, e.bias[n], keep);
   } else {
-    float v = round_to<T>(round_to<T>(acc) + round_to<T>(e.bias[n]));
+    const float v = round_to<T>(round_to<T>(acc) + round_to<T>(e.bias[n]));
     if (EPI == EPI_BIAS) {
       static_cast<T*>(e.out)[idx] = from_f<T>(v);
     } else if (EPI == EPI_BIAS_GELU) {
       static_cast<T*>(e.out)[idx] = from_f<T>(v * gelu_cdf(v));
-    } else if (EPI == EPI_BIAS_T1_GELU) {
+    } else {  // EPI_BIAS_T1_GELU
       static_cast<T*>(e.out)[idx] = from_f<T>(v);
       static_cast<T*>(e.out2)[idx] = from_f<T>(v * gelu_cdf(v));
-    } else {  // EPI_RESID_ROUND, EPI_RESID_ROUND_DROP
-      if (EPI == EPI_RESID_ROUND_DROP && e.drop.on)
-        v = round_to<T>(v * hidden_keep(e.drop, m, n, e.S, N));
-      const float r = to_f(static_cast<const T*>(e.resid)[idx]);
-      static_cast<float*>(e.out)[idx] = r + v;
     }
   }
 }
@@ -351,14 +382,13 @@ __device__ __forceinline__ void tc_load_stage(uint16_t* base, const bf16* A, con
 __device__ __forceinline__ bool epi_pair(int c, int N) { return c + 1 < N && (N & 1) == 0; }
 
 // The residual pair an epilogue reads at (r, c), c + 1 on the vector path
-// (EPI_ADD_F32_ROUND: f32 dz; EPI_GELU_GRAD: t1; EPI_RESID_F32 and
-// EPI_RESID_F32_DROP: x), zeros for the other modes: loaded apart from its
-// use, so that a caller can start many loads before it needs the first.
+// (EPI_ADD_F32_ROUND: f32 dz; EPI_GELU_GRAD: t1; the EPI_RESID_* modes: x),
+// zeros for the other modes: loaded apart from its use, so that a caller can
+// start many loads before it needs the first.
 template <int EPI>
 __device__ __forceinline__ float2 epi_resid2(const EpiArgs& e, int r, int c, int M, int N) {
-  if ((EPI == EPI_ADD_F32_ROUND || EPI == EPI_GELU_GRAD || EPI == EPI_RESID_F32 ||
-       EPI == EPI_RESID_F32_DROP) &&
-      r < M && epi_pair(c, N)) {
+  if ((EPI == EPI_ADD_F32_ROUND || EPI == EPI_GELU_GRAD || epi_resid(EPI)) && r < M &&
+      epi_pair(c, N)) {
     const size_t idx = (size_t)r * N + c;
     if (EPI == EPI_ADD_F32_ROUND)
       return *reinterpret_cast<const float2*>(static_cast<const float*>(e.resid) + idx);
@@ -368,12 +398,23 @@ __device__ __forceinline__ float2 epi_resid2(const EpiArgs& e, int r, int c, int
   return make_float2(0.f, 0.f);
 }
 
-// Columns c, c + 1 of row r, `res` being epi_resid2 at the same place; vector
-// loads and stores on the pair path for every mode but EPI_RESID_ROUND_DROP,
-// with epi_store's arithmetic (the dropout keep multiplier per element).
+// The dropout stream of row r for the modes with a hidden-site dropout
+// (EPI_RESID_ROUND_DROP, EPI_RESID_F32_DROP) when it is on.
+template <int EPI>
+__device__ __forceinline__ RowDrop epi_row(const EpiArgs& e, int r) {
+  if (epi_drops(EPI) && e.drop.on) {
+    const int ex = r / e.S;
+    return RowDrop{site_base(e.drop.seed, e.drop.site, (uint32_t)ex, 0u), r - ex * e.S};
+  }
+  return RowDrop{0u, 0};
+}
+
+// Columns c, c + 1 of row r, `res` being epi_resid2 and `rd` epi_row at the
+// same place; vector loads and stores on the pair path, with epi_store's
+// arithmetic (the dropout keep multiplier per element).
 template <int EPI>
 __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M, int N,
-                                           float a0, float a1, float2 res) {
+                                           float a0, float a1, float2 res, RowDrop rd) {
   if (r >= M) return;
   if (EPI >= EPI_STORE_F32 && epi_pair(c, N)) {
     const size_t idx = (size_t)r * N + c;
@@ -399,40 +440,23 @@ __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M
     }
     return;
   }
-  if (EPI == EPI_RESID_F32_DROP && epi_pair(c, N)) {
-    float k0 = 1.f, k1 = 1.f;
-    if (e.drop.on) {
-      const uint32_t base = site_base(e.drop.seed, e.drop.site, (uint32_t)(r / e.S), 0u);
-      k0 = keep_mult(e.drop, base, r % e.S, c, N);
-      k1 = keep_mult(e.drop, base, r % e.S, c + 1, N);
-    }
-    *reinterpret_cast<float2*>(static_cast<float*>(e.out) + (size_t)r * N + c) = make_float2(
-        resid_drop(res.x, a0, e.bias[c], k0), resid_drop(res.y, a1, e.bias[c + 1], k1));
+  if (epi_resid(EPI) && epi_pair(c, N)) {  // x preloaded by epi_resid2
+    const float2 k = epi_drops(EPI) && e.drop.on ? keep_mult2(e.drop, rd, c, N)
+                                                 : make_float2(1.f, 1.f);
+    *reinterpret_cast<float2*>(static_cast<float*>(e.out) + (size_t)r * N + c) =
+        make_float2(resid_out<bf16, EPI>(res.x, a0, e.bias[c], k.x),
+                    resid_out<bf16, EPI>(res.y, a1, e.bias[c + 1], k.y));
     return;
   }
-  if (EPI <= EPI_RESID_F32 && c + 1 < N && (N & 1) == 0) {
-    const size_t idx = (size_t)r * N + c;
-    const float b0 = e.bias[c], b1 = e.bias[c + 1];
-    if (EPI == EPI_RESID_F32) {  // x preloaded by epi_resid2
-      *reinterpret_cast<float2*>(static_cast<float*>(e.out) + idx) =
-          make_float2((res.x + b0) + a0, (res.y + b1) + a1);
-    } else if (EPI == EPI_RESID_ROUND) {
-      const __nv_bfloat162 x2 =
-          *reinterpret_cast<const __nv_bfloat162*>(static_cast<const bf16*>(e.resid) + idx);
-      float2 z;
-      z.x = __bfloat162float(x2.x) + round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b0));
-      z.y = __bfloat162float(x2.y) + round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b1));
-      *reinterpret_cast<float2*>(static_cast<float*>(e.out) + idx) = z;
-    } else {
-      float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b0));
-      float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b1));
-      if (EPI == EPI_BIAS_GELU) {
-        v0 *= gelu_cdf(v0);
-        v1 *= gelu_cdf(v1);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(e.out) + idx) =
-          __floats2bfloat162_rn(v0, v1);
+  if (EPI <= EPI_BIAS_GELU && epi_pair(c, N)) {
+    float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(e.bias[c]));
+    float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(e.bias[c + 1]));
+    if (EPI == EPI_BIAS_GELU) {
+      v0 *= gelu_cdf(v0);
+      v1 *= gelu_cdf(v1);
     }
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(e.out) + (size_t)r * N + c) =
+        __floats2bfloat162_rn(v0, v1);
     return;
   }
   if (c < N) epi_store<bf16, EPI>(e, r, c, N, a0);
@@ -442,7 +466,7 @@ __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M
 template <int EPI>
 __device__ __forceinline__ void epi_store2(const EpiArgs& e, int r, int c, int M, int N,
                                            float a0, float a1) {
-  epi_store2<EPI>(e, r, c, M, N, a0, a1, epi_resid2<EPI>(e, r, c, M, N));
+  epi_store2<EPI>(e, r, c, M, N, a0, a1, epi_resid2<EPI>(e, r, c, M, N), epi_row<EPI>(e, r));
 }
 
 template <int EPI, bool A_T, bool B_T>
@@ -732,20 +756,34 @@ attention_core(const T* __restrict__ qkv, const float* __restrict__ mask_bias,
   }
 }
 
-// bf16 attention core on the tensor cores, head_dim 64. One block per
-// (example, head) x 64 queries; each of the 4 warps owns 16 query rows and
-// runs S = Q.K^T (mma m16n8k16, f32 accumulation) for all keys at once,
-// the softmax in registers, then P.V with the rounded probabilities as the A
-// operand straight from the score fragments. Keys are padded to a multiple
-// of 16 (zero rows, bias -inf). Shared rows are padded by 8 elements so the
-// 32-bit fragment loads hit 32 distinct banks.
-constexpr int TA_D = 64, TA_QROWS = 64, TA_WARPS = 4, TA_LDK = TA_D + 8;
+// bf16 attention core on the tensor cores, head_dim 64, S <= 128. The block
+// is persistent (as many per SM as fit) and walks over the (example, head)
+// pairs; its 8 warps own 16 query rows each, so all S <= 128 rows of a pair
+// share one copy of its K and V. While the warps work on one pair, cp.async
+// stages the block's next pair (its Q, K and V head windows and the mask
+// bias) into the other of two buffers. Rows are padded by 8 elements so the
+// 32-bit fragment loads hit 32 distinct banks; keys are padded to a multiple
+// of 16 (zero rows, bias -inf).
+// Each warp runs S = Q.K^T (mma m16n8k16, f32 accumulation) for all keys at
+// once, the softmax in registers, then P.V with the rounded probabilities as
+// the A operand straight from the score fragments and V's B fragments read
+// with ldmatrix.trans. The k16 steps, the key tiles, the per-thread sums in
+// key-tile order, the quad shuffles, expf, the division by the sum, the keep
+// multiply and the rounding are those that attention_bwd_core_tc's phase A
+// replays, so the backward's probabilities are the forward's bit for bit.
+// Shared memory at S = 128: 2 x 54.5 KB.
+constexpr int TA_D = 64, TA_LDK = TA_D + 8, AFT_WARPS = 8;
 
 __host__ __device__ constexpr int ta_pad(int S) { return (S + 15) & ~15; }
 
-__host__ __device__ constexpr size_t ta_smem_bytes(int S) {
-  return 2 * ((size_t)ta_pad(S) * TA_LDK + (size_t)TA_QROWS * TA_LDK +
-              (size_t)TA_D * (ta_pad(S) + 8)) + 4 * (size_t)ta_pad(S);
+// bf16 elements of one staging buffer: Q, K and V (s_pad x TA_LDK each) and
+// the s_pad floats of mask bias.
+__host__ __device__ constexpr int aft_stage_elems(int s_pad) {
+  return 3 * s_pad * TA_LDK + 2 * s_pad;
+}
+
+__host__ __device__ constexpr size_t aft_smem_bytes(int S) {
+  return 2 * 2 * (size_t)aft_stage_elems(ta_pad(S));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -753,166 +791,213 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+// A 4 x 4 transpose of 32-bit words across the 4 threads of a quad: thread
+// t4 gives w.x .. w.w and gets word t4 of thread j in place j.
+__device__ __forceinline__ uint4 quad_transpose(uint4 w, int t4) {
+  const bool hi = t4 & 2, odd = t4 & 1;
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? w.x : w.z, 2);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? w.y : w.w, 2);
+  const uint32_t b0 = hi ? r0 : w.x, b1 = hi ? r1 : w.y;
+  const uint32_t b2 = hi ? w.z : r0, b3 = hi ? w.w : r1;
+  const uint32_t q0 = __shfl_xor_sync(0xffffffffu, odd ? b0 : b1, 1);
+  const uint32_t q1 = __shfl_xor_sync(0xffffffffu, odd ? b2 : b3, 1);
+  return make_uint4(odd ? q0 : b0, odd ? b1 : q0, odd ? q1 : b2, odd ? b3 : q1);
+}
+
 template <bool DROP>
-__global__ void __launch_bounds__(TA_WARPS * 32)
-attention_core_tc(const bf16* __restrict__ qkv, const float* __restrict__ mask_bias,
-                  bf16* __restrict__ ctx, int S, int H, int nh, float scale,
-                  Drop drop) {
-  extern __shared__ __align__(16) unsigned char ta_smem[];
-  const int s_pad = ta_pad(S), ldv = s_pad + 8;
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(ta_smem);  // s_pad x TA_LDK
-  uint16_t* Qs = Ks + s_pad * TA_LDK;                    // TA_QROWS x TA_LDK
-  uint16_t* Vt = Qs + TA_QROWS * TA_LDK;                 // TA_D x ldv (V^T)
-  float* Bs = reinterpret_cast<float*>(Vt + TA_D * ldv); // s_pad mask bias
+__global__ void __launch_bounds__(AFT_WARPS * 32, 2)
+attention_fwd_core_tc(const bf16* __restrict__ qkv, const float* __restrict__ mask_bias,
+                      bf16* __restrict__ ctx, int S, int H, int nh, int units, float scale,
+                      Drop drop) {
+  extern __shared__ __align__(16) unsigned char aft_smem[];
+  const int s_pad = ta_pad(S), tile = s_pad * TA_LDK;
+  const int stage_elems = aft_stage_elems(s_pad);
+  uint16_t* staging = reinterpret_cast<uint16_t*>(aft_smem);  // two buffers
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int b = blockIdx.x / nh, h = blockIdx.x % nh;
-  const int q0 = blockIdx.y * TA_QROWS;
   const size_t ld = 3 * (size_t)H;
-  const uint16_t* base = reinterpret_cast<const uint16_t*>(qkv) + (size_t)b * S * ld;
+  const uint16_t* qkv16 = reinterpret_cast<const uint16_t*>(qkv);
 
-  for (int idx = tid; idx < s_pad * 8; idx += blockDim.x) {
-    const int j = idx >> 3, c = (idx & 7) * 8;
-    Pack8 k, v;
-    k.u = v.u = make_uint4(0u, 0u, 0u, 0u);
-    if (j < S) {
-      k.u = *reinterpret_cast<const uint4*>(base + j * ld + H + h * TA_D + c);
-      v.u = *reinterpret_cast<const uint4*>(base + j * ld + 2 * H + h * TA_D + c);
+  // Stage pair u (example u / nh, head u % nh) into buffer `buf`: rows
+  // j >= S read as zeros, and their bias is -inf in both buffers (set once).
+  auto stage = [&](int u, int buf) {
+    const int b = u / nh, h = u % nh;
+    uint16_t* Q = staging + buf * stage_elems;
+    const uint16_t* rows = qkv16 + (size_t)b * S * ld + h * TA_D;
+    for (int idx = tid; idx < s_pad * 8; idx += blockDim.x) {
+      const int j = idx >> 3, c = (idx & 7) * 8, o = j * TA_LDK + c;
+      const int n = j < S ? 16 : 0, jj = j < S ? j : 0;
+      const uint16_t* row = rows + jj * ld + c;
+      cp_async16(Q + o, row, n);
+      cp_async16(Q + tile + o, row + H, n);
+      cp_async16(Q + 2 * tile + o, row + 2 * H, n);
     }
-    *reinterpret_cast<uint4*>(Ks + j * TA_LDK + c) = k.u;
+    float* bias = reinterpret_cast<float*>(Q + 3 * tile);
+    for (int j = tid; j < S; j += blockDim.x) cp_async4(bias + j, mask_bias + (size_t)b * S + j);
+    cp_async_commit();
+  };
+  for (int j = S + tid; j < s_pad; j += blockDim.x)
 #pragma unroll
-    for (int e = 0; e < 8; ++e) Vt[(c + e) * ldv + j] = v.h[e];
-  }
-  for (int idx = tid; idx < TA_QROWS * 8; idx += blockDim.x) {
-    const int r = idx >> 3, c = (idx & 7) * 8, i = q0 + r;
-    uint4 q = make_uint4(0u, 0u, 0u, 0u);
-    if (i < S) q = *reinterpret_cast<const uint4*>(base + i * ld + h * TA_D + c);
-    *reinterpret_cast<uint4*>(Qs + r * TA_LDK + c) = q;
-  }
-  for (int j = tid; j < s_pad; j += blockDim.x)
-    Bs[j] = j < S ? mask_bias[(size_t)b * S + j] : -INFINITY;
-  __syncthreads();
+    for (int buf = 0; buf < 2; ++buf)
+      reinterpret_cast<float*>(staging + buf * stage_elems + 3 * tile)[j] = -INFINITY;
+  stage(blockIdx.x, 0);
 
-  const int r0 = warp * 16;
-  if (q0 + r0 >= S) return;
+  // ldmatrix.trans row addresses of a B operand stored [k][n] (n-contiguous).
+  const int bt_k = (lane & 7) + 8 * ((lane >> 3) & 1), bt_n = 8 * (lane >> 4);
   const int n_tiles = s_pad / 8;  // <= 16 key tiles of 8
+  const int r0 = warp * 16;
+  int buf = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, buf ^= 1) {
+    cp_async_wait<0>();
+    // Pair u is staged, and every warp is done with the other buffer:
+    // prefetch the block's next pair there.
+    __syncthreads();
+    if (u + (int)gridDim.x < units) stage(u + gridDim.x, buf ^ 1);
+    if (r0 >= S) continue;
+    const uint16_t* Qs = staging + buf * stage_elems;
+    const uint16_t* Ks = Qs + tile;
+    const uint16_t* Vs = Ks + tile;
+    const float* Bs = reinterpret_cast<const float*>(Vs + tile);
+    const int b = u / nh, h = u % nh;
 
-  float sc[16][4];
+    float sc[16][4];
 #pragma unroll
-  for (int nt = 0; nt < 16; ++nt)
+    for (int nt = 0; nt < 16; ++nt)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
+      for (int c = 0; c < 4; ++c) sc[nt][c] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < TA_D; kk += 16) {
-    uint32_t a[4];
-    const uint16_t* p0 = Qs + (r0 + g) * TA_LDK + kk + t4 * 2;
-    const uint16_t* p1 = p0 + 8 * TA_LDK;
-    a[0] = *reinterpret_cast<const uint32_t*>(p0);
-    a[1] = *reinterpret_cast<const uint32_t*>(p1);
-    a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
+    for (int kk = 0; kk < TA_D; kk += 16) {
+      uint32_t a[4];
+      const uint16_t* p0 = Qs + (r0 + g) * TA_LDK + kk + t4 * 2;
+      const uint16_t* p1 = p0 + 8 * TA_LDK;
+      a[0] = *reinterpret_cast<const uint32_t*>(p0);
+      a[1] = *reinterpret_cast<const uint32_t*>(p1);
+      a[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
+      a[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
 #pragma unroll
-    for (int nt = 0; nt < 16; ++nt) {
-      if (nt < n_tiles) {
-        const uint16_t* q = Ks + (nt * 8 + g) * TA_LDK + kk + t4 * 2;
-        uint32_t bfr[2];
-        bfr[0] = *reinterpret_cast<const uint32_t*>(q);
-        bfr[1] = *reinterpret_cast<const uint32_t*>(q + 8);
-        mma_bf16_16816(sc[nt], a, bfr);
+      for (int nt = 0; nt < 16; ++nt) {
+        if (nt < n_tiles) {
+          const uint16_t* q = Ks + (nt * 8 + g) * TA_LDK + kk + t4 * 2;
+          uint32_t bfr[2];
+          bfr[0] = *reinterpret_cast<const uint32_t*>(q);
+          bfr[1] = *reinterpret_cast<const uint32_t*>(q + 8);
+          mma_bf16_16816(sc[nt], a, bfr);
+        }
       }
     }
-  }
 
-  // Softmax over the rows g (c0, c1) and g + 8 (c2, c3); a row's columns are
-  // spread over the 4 threads of a quad.
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-    if (nt < n_tiles) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float bias = Bs[nt * 8 + t4 * 2 + e];
-        sc[nt][e] = sc[nt][e] * scale + bias;
-        sc[nt][2 + e] = sc[nt][2 + e] * scale + bias;
-        mx0 = fmaxf(mx0, sc[nt][e]);
-        mx1 = fmaxf(mx1, sc[nt][2 + e]);
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-  }
-  float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-  for (int nt = 0; nt < 16; ++nt) {
-    if (nt < n_tiles) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        sc[nt][e] = expf(sc[nt][e] - mx0);
-        sc[nt][2 + e] = expf(sc[nt][2 + e] - mx1);
-        sum0 += sc[nt][e];
-        sum1 += sc[nt][2 + e];
-      }
-    }
-  }
-#pragma unroll
-  for (int o = 1; o <= 2; o <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
-  }
-  const int i0 = q0 + r0 + g, i1 = i0 + 8;
-  if (DROP) {  // probabilities times the keep multipliers, as f32
-    const uint32_t dbase = site_base(drop.seed, SITE_PROBS, (uint32_t)b, (uint32_t)h);
+    // Softmax over the rows g (c0, c1) and g + 8 (c2, c3); a row's columns
+    // are spread over the 4 threads of a quad.
+    float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int nt = 0; nt < 16; ++nt) {
       if (nt < n_tiles) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int j = nt * 8 + t4 * 2 + e;
-          sc[nt][e] = (sc[nt][e] / sum0) * keep_mult(drop, dbase, i0, j, S);
-          sc[nt][2 + e] = (sc[nt][2 + e] / sum1) * keep_mult(drop, dbase, i1, j, S);
+          const float bias = Bs[nt * 8 + t4 * 2 + e];
+          sc[nt][e] = sc[nt][e] * scale + bias;
+          sc[nt][2 + e] = sc[nt][2 + e] * scale + bias;
+          mx0 = fmaxf(mx0, sc[nt][e]);
+          mx1 = fmaxf(mx1, sc[nt][2 + e]);
         }
       }
     }
-    sum0 = sum1 = 1.f;
-  }
-
-  float out[8][4];
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn)
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) out[dn][c] = 0.f;
+    for (int nt = 0; nt < 16; ++nt) {
+      if (nt < n_tiles) {
 #pragma unroll
-  for (int kc = 0; kc < 8; ++kc) {
-    if (kc < n_tiles / 2) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(sc[2 * kc][0] / sum0, sc[2 * kc][1] / sum0);
-      a[1] = pack_bf16x2(sc[2 * kc][2] / sum1, sc[2 * kc][3] / sum1);
-      a[2] = pack_bf16x2(sc[2 * kc + 1][0] / sum0, sc[2 * kc + 1][1] / sum0);
-      a[3] = pack_bf16x2(sc[2 * kc + 1][2] / sum1, sc[2 * kc + 1][3] / sum1);
-#pragma unroll
-      for (int dn = 0; dn < 8; ++dn) {
-        const uint16_t* q = Vt + (dn * 8 + g) * ldv + kc * 16 + t4 * 2;
-        uint32_t bfr[2];
-        bfr[0] = *reinterpret_cast<const uint32_t*>(q);
-        bfr[1] = *reinterpret_cast<const uint32_t*>(q + 8);
-        mma_bf16_16816(out[dn], a, bfr);
+        for (int e = 0; e < 2; ++e) {
+          sc[nt][e] = expf(sc[nt][e] - mx0);
+          sc[nt][2 + e] = expf(sc[nt][2 + e] - mx1);
+          sum0 += sc[nt][e];
+          sum1 += sc[nt][2 + e];
+        }
       }
     }
-  }
-
 #pragma unroll
-  for (int dn = 0; dn < 8; ++dn) {
-    const int col = h * TA_D + dn * 8 + t4 * 2;
-    if (i0 < S)
-      *reinterpret_cast<uint32_t*>(ctx + ((size_t)b * S + i0) * H + col) =
-          pack_bf16x2(out[dn][0], out[dn][1]);
-    if (i1 < S)
-      *reinterpret_cast<uint32_t*>(ctx + ((size_t)b * S + i1) * H + col) =
-          pack_bf16x2(out[dn][2], out[dn][3]);
+    for (int o = 1; o <= 2; o <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, o);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, o);
+    }
+
+    // p = e / sum, times the keep multiplier (f32), rounded to bf16 pairs:
+    // the A fragments of P.V, rows g and g + 8 of each key tile.
+    const int i0 = r0 + g, i1 = i0 + 8;
+    const uint32_t dbase = DROP ? site_base(drop.seed, SITE_PROBS, (uint32_t)b, (uint32_t)h) : 0u;
+    uint32_t pk[16][2];
+#pragma unroll
+    for (int nt = 0; nt < 16; ++nt) {
+      pk[nt][0] = pk[nt][1] = 0u;
+      if (nt < n_tiles) {
+        float p0[2], p1[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          p0[e] = sc[nt][e] / sum0;
+          p1[e] = sc[nt][2 + e] / sum1;
+          if (DROP) {
+            const int j = nt * 8 + t4 * 2 + e;
+            p0[e] *= keep_mult(drop, dbase, i0, j, S);
+            p1[e] *= keep_mult(drop, dbase, i1, j, S);
+          }
+        }
+        pk[nt][0] = pack_bf16x2(p0[0], p0[1]);
+        pk[nt][1] = pack_bf16x2(p1[0], p1[1]);
+      }
+    }
+
+    float out[8][4];
+#pragma unroll
+    for (int dn = 0; dn < 8; ++dn)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) out[dn][c] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < 8; ++kc) {
+      if (kc < n_tiles / 2) {
+        const uint32_t a[4] = {pk[2 * kc][0], pk[2 * kc][1], pk[2 * kc + 1][0],
+                               pk[2 * kc + 1][1]};
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, Vs + (kc * 16 + bt_k) * TA_LDK + bt_n + np * 16);
+          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+          mma_bf16_16816(out[2 * np], a, b0);
+          mma_bf16_16816(out[2 * np + 1], a, b1);
+        }
+      }
+    }
+
+    // ctx rows i0 and i1: the quad's column pairs transposed so that each
+    // thread stores 8 consecutive columns (16 bytes) of a 32-column half.
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const uint4 w0 = quad_transpose(
+          make_uint4(pack_bf16x2(out[4 * q][0], out[4 * q][1]),
+                     pack_bf16x2(out[4 * q + 1][0], out[4 * q + 1][1]),
+                     pack_bf16x2(out[4 * q + 2][0], out[4 * q + 2][1]),
+                     pack_bf16x2(out[4 * q + 3][0], out[4 * q + 3][1])),
+          t4);
+      const uint4 w1 = quad_transpose(
+          make_uint4(pack_bf16x2(out[4 * q][2], out[4 * q][3]),
+                     pack_bf16x2(out[4 * q + 1][2], out[4 * q + 1][3]),
+                     pack_bf16x2(out[4 * q + 2][2], out[4 * q + 2][3]),
+                     pack_bf16x2(out[4 * q + 3][2], out[4 * q + 3][3])),
+          t4);
+      bf16* col = ctx + (size_t)b * S * H + h * TA_D + q * 32 + t4 * 8;
+      if (i0 < S) *reinterpret_cast<uint4*>(col + (size_t)i0 * H) = w0;
+      if (i1 < S) *reinterpret_cast<uint4*>(col + (size_t)i1 * H) = w1;
+    }
   }
 }
 
@@ -995,22 +1080,52 @@ int layer_norm(const float* z, const float* g, const float* b, T* y, int M, int 
   return (int)cudaGetLastError();
 }
 
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms <= 0)
+      sms = 132;
+  }
+  return sms;
+}
+
+// The persistent tensor-core core: as many blocks as fit on the card at
+// once (two per SM at S = 128 when the registers allow), at most one per
+// (example, head) pair.
+template <bool DROP>
+int attention_fwd_tc_launch(const bf16* qkv, const float* mask, bf16* ctx, int B, int S, int H,
+                            int nh, float scale, Drop drop, cudaStream_t st) {
+  const size_t smem = aft_smem_bytes(S);
+  int err = (int)cudaFuncSetAttribute(attention_fwd_core_tc<DROP>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  static int fit[AT_MAX_S / 16 + 1] = {};  // blocks per SM, by the padded S / 16
+  int& per_sm = fit[ta_pad(S) / 16];
+  if (per_sm == 0) {
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, attention_fwd_core_tc<DROP>, AFT_WARPS * 32, smem);
+    if (err) return err;
+    if (per_sm < 1) per_sm = 1;
+  }
+  const int units = B * nh;
+  if (units == 0) return 0;
+  const long slots = (long)per_sm * sm_count();
+  const int blocks = units < slots ? units : (int)slots;
+  attention_fwd_core_tc<DROP><<<blocks, AFT_WARPS * 32, smem, st>>>(qkv, mask, ctx, S, H, nh,
+                                                                    units, scale, drop);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool DROP>
 int attention_core_launch_as(const T* qkv, const float* mask, T* ctx, int B, int S,
                              int H, int nh, float scale, Drop drop, cudaStream_t st) {
   const int D = H / nh;
   if constexpr (sizeof(T) == 2) {
-    if (D == TA_D) {
-      const size_t smem = ta_smem_bytes(S);
-      int err = (int)cudaFuncSetAttribute(attention_core_tc<DROP>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)smem);
-      if (err) return err;
-      dim3 grid(B * nh, (S + TA_QROWS - 1) / TA_QROWS);
-      attention_core_tc<DROP><<<grid, TA_WARPS * 32, smem, st>>>(qkv, mask, ctx, S, H,
-                                                                 nh, scale, drop);
-      return (int)cudaGetLastError();
-    }
+    if (D == TA_D && aligned16(qkv) && aligned16(ctx))
+      return attention_fwd_tc_launch<DROP>(qkv, mask, ctx, B, S, H, nh, scale, drop, st);
   }
   const size_t smem = at_smem_floats(S, D) * sizeof(float);
   int err = (int)cudaFuncSetAttribute(attention_core<T, DROP>,
@@ -1025,7 +1140,8 @@ int attention_core_launch_as(const T* qkv, const float* mask, T* ctx, int B, int
 
 // softmax(q.k^T * scale + mask) . v for every (example, head), the
 // probabilities dropped with `drop` (site SITE_PROBS) when drop.on: the
-// tensor cores for bf16 at head_dim 64, the CUDA-core version otherwise.
+// persistent tensor-core core for bf16 at head_dim 64 (16-byte aligned
+// q/k/v and ctx), the CUDA-core version otherwise.
 template <typename T>
 int attention_core_launch(const T* qkv, const float* mask, T* ctx, int B, int S,
                           int H, int nh, float scale, Drop drop, cudaStream_t st) {

@@ -28,15 +28,16 @@
 //     16-byte aligned, row strides not a multiple of 8) take the mma.sync
 //     GEMM of bert_block_common.cuh instead, decided from the shape before
 //     the launch; float32 takes the CUDA-core GEMM.
-//   * the FFN forward's two products run on gemm_sm90 with the weights read
-//     K-major (linear_product): x.W1^T with bias and gelu on the ping-pong
-//     schedule, so one warpgroup's epilogue overlaps the other's products;
-//     inter.W2^T into the f32 residual with the output dropout on the tile
-//     that fills the card's waves best. The FFN backward's t1 replay takes
-//     the W1 product's route with the same operands, so t1 and gelu(t1) are
-//     the forward's bit for bit. The attention products that replay its
-//     forward (q/k/v, the out-projection) run in the forward's mma.sync GEMM
-//     (gemm_bf16_tc) for the same reason.
+//   * every forward product runs on gemm_sm90 with the weights read K-major
+//     (linear_product): x.W1^T with bias and gelu on the ping-pong schedule,
+//     so one warpgroup's epilogue overlaps the other's products; inter.W2^T
+//     into the f32 residual with the output dropout, x.Wqkv^T with its bias
+//     and ctx.Wo^T into the f32 residual with the attention output dropout
+//     on the schedule measured fastest for their shapes. The backward's
+//     replays take the forward's routes with the same operands (the FFN's t1
+//     on the W1 product's route, the attention's q/k/v, core and
+//     out-projection through attention_products), so the replayed values are
+//     the forward's bit for bit.
 //   * the TPU kernels carry weight gradients in a grid-invariant accumulator
 //     from one sequential grid step to the next; here blocks run in no
 //     order, so a weight gradient is one GEMM over all rows, split along
@@ -51,8 +52,7 @@
 //     cores (attention_bwd_core_tc, below): ~10.5 MFLOP of mma.sync per
 //     (example, head), against the f32 CUDA-core loops of
 //     attention_bwd_core, which stays for float32 and other head dims.
-// Not yet: the attention forward's products on wgmma, fusing the LayerNorm
-// and its backward into the GEMM epilogues.
+// Not yet: fusing the LayerNorm and its backward into the GEMM epilogues.
 
 #include "bert_block_common.cuh"
 #include "gemm_sm90.cuh"
@@ -446,11 +446,6 @@ __host__ __device__ constexpr size_t abt_smem_bytes(int S) {
               2 * (size_t)ta_pad(S) * (ta_pad(S) + 8));
 }
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-
 template <bool DROP>
 __global__ void __launch_bounds__(ABT_WARPS * 32)
 attention_bwd_core_tc(const bf16* __restrict__ qkv, const bf16* __restrict__ dctx,
@@ -771,20 +766,31 @@ bool attention_shape_ok(int S, int H, int nh) {
   return nh > 0 && S > 0 && S <= AT_MAX_S && H % nh == 0 && H / nh <= AT_MAX_D;
 }
 
+// The attention forward up to the pre-LN sum z32: q/k/v = x.Wqkv^T + bqkv,
+// the core with the probability dropout, z32 = x + drop(ctx.Wo^T + bo). The
+// forward and the backward's recompute both run this, so the replayed
+// q/k/v, ctx and z32 are the forward's bit for bit.
+template <typename T>
+int attention_products(const T* x, const T* wqkv, const float* bqkv, const T* wo,
+                       const float* bo, const float* mask, T* qkv, T* ctx, float* z32, int B,
+                       int S, int H, int nh, float scale, const RtDropout& d, cudaStream_t st) {
+  const int M = B * S;
+  RT_TRY(linear_product<EPI_BIAS>(x, wqkv, M, 3 * H, H, epi(bqkv, nullptr, qkv), st));
+  RT_TRY(attention_core_launch<T>(qkv, mask, ctx, B, S, H, nh, scale, probs_drop(d), st));
+  return linear_product<EPI_RESID_ROUND_DROP>(
+      ctx, wo, M, H, H, epi(bo, x, z32, nullptr, hidden_drop(d, SITE_ATTN_OUT), S), st);
+}
+
 template <typename T>
 int attention_fwd_impl(const T* x, const T* wqkv, const float* bqkv, const T* wo,
                        const float* bo, const float* g, const float* beta,
                        const float* mask, T* qkv, T* ctx, float* z32, T* y, int B, int S,
                        int H, int nh, float scale, float eps, const RtDropout& d,
                        cudaStream_t st) {
-  const int M = B * S;
   if (!attention_shape_ok(S, H, nh)) return (int)cudaErrorInvalidValue;
-  RT_TRY(launch_gemm<EPI_BIAS>(x, wqkv, M, 3 * H, H, H, H, epi(bqkv, nullptr, qkv), st));
-  RT_TRY(attention_core_launch<T>(qkv, mask, ctx, B, S, H, nh, scale, probs_drop(d), st));
-  RT_TRY(launch_gemm<EPI_RESID_ROUND_DROP>(
-      ctx, wo, M, H, H, H, H, epi(bo, x, z32, nullptr, hidden_drop(d, SITE_ATTN_OUT), S),
-      st));
-  return layer_norm<T>(z32, g, beta, y, M, H, eps, st);
+  RT_TRY(attention_products<T>(x, wqkv, bqkv, wo, bo, mask, qkv, ctx, z32, B, S, H, nh, scale,
+                               d, st));
+  return layer_norm<T>(z32, g, beta, y, B * S, H, eps, st);
 }
 
 template <typename T>
@@ -799,10 +805,8 @@ int attention_bwd_impl(const T* x, const T* dy, const T* wqkv, const float* bqkv
   if (!attention_shape_ok(S, H, nh)) return (int)cudaErrorInvalidValue;
   const Drop dh = hidden_drop(d, SITE_ATTN_OUT);
   // Recompute the forward up to the pre-LN sum.
-  RT_TRY(launch_gemm<EPI_BIAS>(x, wqkv, M, 3 * H, H, H, H, epi(bqkv, nullptr, qkv), st));
-  RT_TRY(attention_core_launch<T>(qkv, mask, ctx, B, S, H, nh, scale, probs_drop(d), st));
-  RT_TRY(launch_gemm<EPI_RESID_ROUND_DROP>(ctx, wo, M, H, H, H, H,
-                                           epi(bo, x, z32, nullptr, dh, S), st));
+  RT_TRY(attention_products<T>(x, wqkv, bqkv, wo, bo, mask, qkv, ctx, z32, B, S, H, nh, scale,
+                               d, st));
   // LayerNorm backward, the output-dropout replay, dgamma/dbeta/dbo.
   RT_TRY(ln_bwd<T, float>(z32, dy, g, M, H, eps, dh, S, dz, dnorm, dattn, nullptr, st));
   RT_TRY(colsum<float>(dnorm, M, H, part, dg, st));
@@ -854,19 +858,25 @@ int ffn_bwd_impl(const T* x, const T* z, const T* dy, const T* w1, const float* 
   return data_grad<EPI_ADD_F32_ROUND>(dt1, w1, M, H, I, I, H, epi(nullptr, dz, dx), st);
 }
 
-// One forward product of the FFN blocks alone, for tests and timing, on the
-// route the blocks take (linear_product): A (M, K) times a torch weight W
-// (N, K), with the epilogue `mode`: EPI_BIAS_GELU (out T = gelu(round(A.W^T)
-// + b)), EPI_RESID_F32 (out f32 = (resid + b) + A.W^T), EPI_RESID_F32_DROP
-// (out f32 = resid + (A.W^T + b) * keep, the FFN output site's dropout over
-// examples of S rows) or EPI_BIAS_T1_GELU (out T = t1 = round(A.W^T) + b, out2
-// T = gelu(t1)).
+// One forward product of the attention and FFN blocks alone, for tests and
+// timing, on the route the blocks take (linear_product): A (M, K) times a
+// torch weight W (N, K), with the epilogue `mode`: EPI_BIAS (out T = t =
+// round(A.W^T) + b, the q/k/v), EPI_BIAS_GELU (out T = gelu(t)),
+// EPI_RESID_ROUND (out f32 = resid + t, the serving out-projection),
+// EPI_RESID_ROUND_DROP (out f32 = resid + round(t * keep), the training
+// out-projection), EPI_RESID_F32 (out f32 = (resid + b) + A.W^T),
+// EPI_RESID_F32_DROP (out f32 = resid + (A.W^T + b) * keep) or
+// EPI_BIAS_T1_GELU (out T = t, out2 T = gelu(t)); keep is the hidden dropout
+// site `site` over examples of S rows.
 template <typename T>
 int forward_gemm_impl(const T* a, const T* w, const float* bias, const T* resid, void* out,
-                      void* out2, int M, int N, int K, int S, int mode, const RtDropout& d,
-                      cudaStream_t st) {
-  const EpiArgs e = epi(bias, resid, out, out2, hidden_drop(d, SITE_FFN_OUT), S);
+                      void* out2, int M, int N, int K, int S, int mode, int site,
+                      const RtDropout& d, cudaStream_t st) {
+  const EpiArgs e = epi(bias, resid, out, out2, hidden_drop(d, (uint32_t)site), S);
   switch (mode) {
+    case EPI_BIAS: return linear_product<EPI_BIAS>(a, w, M, N, K, e, st);
+    case EPI_RESID_ROUND: return linear_product<EPI_RESID_ROUND>(a, w, M, N, K, e, st);
+    case EPI_RESID_ROUND_DROP: return linear_product<EPI_RESID_ROUND_DROP>(a, w, M, N, K, e, st);
     case EPI_BIAS_GELU: return linear_product<EPI_BIAS_GELU>(a, w, M, N, K, e, st);
     case EPI_RESID_F32: return linear_product<EPI_RESID_F32>(a, w, M, N, K, e, st);
     case EPI_RESID_F32_DROP: return linear_product<EPI_RESID_F32_DROP>(a, w, M, N, K, e, st);
@@ -914,11 +924,29 @@ extern "C" int rt_train_gemm(const void* a, const void* b, void* out, void* wspl
 
 extern "C" int rt_forward_gemm(const void* a, const void* w, const void* bias, const void* resid,
                                void* out, void* out2, int M, int N, int K, int S, int mode,
-                               const RtDropout* d, int dtype, void* stream) {
+                               int site, const RtDropout* d, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RT_DISPATCH(forward_gemm_impl, static_cast<const T*>(a), static_cast<const T*>(w),
               static_cast<const float*>(bias), static_cast<const T*>(resid), out, out2, M, N, K,
-              S, mode, *d, st);
+              S, mode, site, *d, st);
+}
+
+// The attention core alone, for tests and timing, on the launcher the blocks
+// use: ctx (B*S, H) = drop_p(softmax(q.k^T * scale + mask)) . v per head of
+// the (B*S, 3H) q/k/v, the probabilities' dropout from d.
+template <typename T>
+int attention_core_impl(const T* qkv, const float* mask, T* ctx, int B, int S, int H, int nh,
+                        float scale, const RtDropout& d, cudaStream_t st) {
+  if (!attention_shape_ok(S, H, nh)) return (int)cudaErrorInvalidValue;
+  return attention_core_launch<T>(qkv, mask, ctx, B, S, H, nh, scale, probs_drop(d), st);
+}
+
+extern "C" int rt_attention_core(const void* qkv, const void* mask, void* ctx, int B, int S,
+                                 int H, int nh, float scale, const RtDropout* d, int dtype,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  RT_DISPATCH(attention_core_impl, static_cast<const T*>(qkv), static_cast<const float*>(mask),
+              static_cast<T*>(ctx), B, S, H, nh, scale, *d, st);
 }
 
 #define F(p) static_cast<const float*>(p)

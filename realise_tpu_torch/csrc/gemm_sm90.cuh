@@ -1,7 +1,7 @@
 // Hopper GEMM (sm_90a): TMA loads into a 128-byte-swizzled shared-memory
 // ring, wgmma on the tensor cores, accumulators in registers. It runs every
-// bf16 product of the FFN sub-blocks, serving and training, and the
-// backward-only products of the attention backward.
+// bf16 weight product of the attention and FFN sub-blocks, serving and
+// training, forward, backward and the backward's replays.
 //
 // C (M, N) = sum_k A(m, k) B(k, n) in the layouts those products need:
 //   * A k-contiguous ("A[m * lda + k]", K-major, trans-a = 0), or A_T, A
@@ -12,16 +12,21 @@
 //   * B n-contiguous ("B[k * ldb + n]", MN-major, trans-b = 1): dY . W, the
 //     data gradients dctx, dt1 and dx; or B_K, B k-contiguous ("B[n * ldb +
 //     k]", K-major, trans-b = 0): X . W^T for torch's (out, in) weight, the
-//     forward products x.W1^T and inter.W2^T and the FFN backward's t1
-//     replay (linear_product, below).
+//     forward products x.Wqkv^T, ctx.Wo^T, x.W1^T and inter.W2^T and the
+//     backward's replays of them (linear_product, below).
 // The epilogue is bert_block_common.cuh's epi_store2, fed from the
 // accumulator fragment (each thread holds column pairs of rows g and g + 8
 // of its warp's 16), so the rounding points are those of gemm_bf16_tc; the
-// bf16 outputs of the gelu epilogues are computed the same way (epi_words)
-// but leave through a transpose within each quad as 16-byte
+// bf16 outputs of the bias epilogues (q/k/v, gelu) are computed the same way
+// (epi_words) but leave through a transpose within each quad as 16-byte
 // stores that fill whole 32-byte sectors (a pair store fills half of one:
 // on an H100 the FFN's x.W1^T with gelu at B*S = 32768 took 0.535 ms with
-// pair stores, 0.406 ms with these).
+// pair stores, 0.406 ms with these). The f32 residual epilogues (z = x +
+// ..., EPI_RESID_*) take the same transpose: a thread reads 8 bf16
+// residuals in one 16-byte load and writes 8 f32 sums in two, the chunk's
+// loads all before its first store, each row's dropout stream found once per
+// chunk (ctx.Wo^T into the residual at B*S = 32768: 0.172 ms with float2
+// stores, 0.110 ms with these, tools/gemm_sm90_probe.py on an H100).
 //
 // What bounds it: at the training shapes (M = B*S = 32768, H = 768, I =
 // 3072) every product does 24-155 GFLOP on a few hundred MB, and at the
@@ -47,12 +52,14 @@
 //     warpgroup to the other when its last wgmma of a tile is issued, so one
 //     warpgroup's epilogue (an erf per element for gelu, the dropout hash)
 //     runs while the other's products do. The producer fills the ring in the
-//     order the warpgroups take the tiles. This is the schedule of the FFN's
-//     x.W1^T and its replay: K = 768 (12 k-tiles) for a gelu epilogue
-//     longer than the products, and of any product whose 128 x 256 tiles
-//     would leave more of the card idle in their last wave.
-// The 64-deep box is the 128-byte swizzle span. N = 768 and 3072 are whole
-// multiples of 128 and 256, and B*S of 128.
+//     order the warpgroups take the tiles. This is the schedule of every
+//     forward product over K = 768 (12 k-tiles: q/k/v, the out-projection,
+//     x.W1^T and their replays), whose epilogues (bias and 16-byte stores,
+//     the f32 residual, gelu's erf, the dropout hash) last about as long as
+//     the products, and of any product whose 128 x 256 tiles would leave
+//     more of the card idle in their last wave.
+// The 64-deep box is the 128-byte swizzle span. N = 768, 2304 and 3072 are
+// whole multiples of 128 (and 768 and 3072 of 256), and B*S of 128.
 //
 // Where it does not apply: TMA needs 16-byte-aligned bases and row strides
 // that are multiples of 8 bf16 elements. sm90_gemm_ok decides that from the
@@ -243,29 +250,37 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[128], uint64_t da, u
       : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-// The packed bf16 outputs of columns c, c + 1 of the gelu epilogues, with
-// epi_store2's arithmetic: (gelu(t1), unused) for EPI_BIAS_GELU, (t1,
-// gelu(t1)) for EPI_BIAS_T1_GELU.
+// The packed bf16 outputs of columns c, c + 1 of the bias epilogues, with
+// epi_store2's arithmetic: (t, unused) for EPI_BIAS, (gelu(t), unused) for
+// EPI_BIAS_GELU, (t, gelu(t)) for EPI_BIAS_T1_GELU, t = round(acc) + bias.
 template <int EPI>
 __device__ __forceinline__ uint2 epi_words(const EpiArgs& e, int c, float a0, float a1) {
   const float2 b = *reinterpret_cast<const float2*>(e.bias + c);
   const float v0 = round_to<bf16>(round_to<bf16>(a0) + round_to<bf16>(b.x));
   const float v1 = round_to<bf16>(round_to<bf16>(a1) + round_to<bf16>(b.y));
+  if (EPI == EPI_BIAS) return make_uint2(pack_bf16x2(v0, v1), 0u);
   const uint32_t gelu = pack_bf16x2(v0 * gelu_cdf(v0), v1 * gelu_cdf(v1));
   return EPI == EPI_BIAS_GELU ? make_uint2(gelu, 0u) : make_uint2(pack_bf16x2(v0, v1), gelu);
 }
 
-// A 4 x 4 transpose of 32-bit words across the 4 threads of a quad: thread
-// t4 gives w.x .. w.w and gets word t4 of thread j in place j.
-__device__ __forceinline__ uint4 quad_transpose(uint4 w, int t4) {
-  const bool hi = t4 & 2, odd = t4 & 1;
-  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, hi ? w.x : w.z, 2);
-  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, hi ? w.y : w.w, 2);
-  const uint32_t b0 = hi ? r0 : w.x, b1 = hi ? r1 : w.y;
-  const uint32_t b2 = hi ? w.z : r0, b3 = hi ? w.w : r1;
-  const uint32_t q0 = __shfl_xor_sync(0xffffffffu, odd ? b0 : b1, 1);
-  const uint32_t q1 = __shfl_xor_sync(0xffffffffu, odd ? b2 : b3, 1);
-  return make_uint4(odd ? q0 : b0, odd ? b1 : q0, odd ? q1 : b2, odd ? b3 : q1);
+// z of the 8 columns c .. c + 7 of one row for the f32 residual epilogues,
+// from their accumulators `a` and bf16 residuals `x`, with epi_store2's
+// arithmetic (rd: the row's dropout stream).
+template <int EPI>
+__device__ __forceinline__ void epi_resid8(const EpiArgs& e, RowDrop rd, int c, int N,
+                                           const float (&a)[8], uint4 x, float (&z)[8]) {
+  const float4 bl = *reinterpret_cast<const float4*>(e.bias + c);
+  const float4 bh = *reinterpret_cast<const float4*>(e.bias + c + 4);
+  const float b[8] = {bl.x, bl.y, bl.z, bl.w, bh.x, bh.y, bh.z, bh.w};
+  const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int i = 0; i < 8; i += 2) {
+    const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xw[i / 2]));
+    const float2 k = epi_drops(EPI) && e.drop.on ? keep_mult2(e.drop, rd, c + i, N)
+                                                 : make_float2(1.f, 1.f);
+    z[i] = resid_out<bf16, EPI>(xv.x, a[i], b[i], k.x);
+    z[i + 1] = resid_out<bf16, EPI>(xv.y, a[i + 1], b[i + 1], k.y);
+  }
 }
 
 // C = A . B (see the top of the file) for the output tiles of units
@@ -335,14 +350,21 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
     // cooperative: both warpgroups take each; ping-pong: warpgroup wg takes
     // i = wg, wg + 2, ..., and tile i begins at ring position i * nk.
     const int tiles = (units - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-    // The gelu epilogues' bf16 outputs leave 16 bytes a thread (below) where
+    // The bias epilogues' bf16 outputs leave 16 bytes a thread (below) where
     // the row stride and the bases allow it.
-    constexpr bool WIDE = EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_T1_GELU;
+    constexpr bool WIDE = EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_T1_GELU;
     const bool wide = WIDE && (N & 7) == 0 &&
                       ((reinterpret_cast<uintptr_t>(e.out) |
                         (EPI == EPI_BIAS_T1_GELU ? reinterpret_cast<uintptr_t>(e.out2) : 0)) &
                        15) == 0 &&
                       (reinterpret_cast<uintptr_t>(e.bias) & 7) == 0;
+    // So do the f32 residual epilogues' outputs, 32 bytes a thread, reading
+    // their bf16 residuals 16 bytes a thread.
+    constexpr bool RWIDE = epi_resid(EPI);
+    const bool rwide = RWIDE && (N & 7) == 0 &&
+                       ((reinterpret_cast<uintptr_t>(e.out) | reinterpret_cast<uintptr_t>(e.resid) |
+                         reinterpret_cast<uintptr_t>(e.bias)) &
+                        15) == 0;
     float acc[128];
     int pos = 0;  // ring position of the tile's first k-tile
     for (int i = PP ? wg : 0; i < tiles; i += PP ? 2 : 1) {
@@ -414,6 +436,8 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
 #pragma unroll 1
       for (int j0 = 0; j0 < 32; j0 += 8) {
         const int r = r0 + (j0 / GROUPS) * 64, c0 = bn + (j0 % GROUPS) * 8;
+        // The chunk's two rows' dropout streams, found once.
+        const RowDrop rd0 = epi_row<EPI>(eu, r), rd1 = epi_row<EPI>(eu, r + 8);
         if (WIDE && wide) {
           // Blocks of 4 groups (32 columns): a quad's 4 x 4 words are
           // transposed so that each thread holds 8 consecutive columns of one
@@ -449,6 +473,59 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
               }
             }
           }
+        } else if (RWIDE && rwide) {
+          // Blocks of 4 groups again: the first and the second words of the
+          // quad's column pairs are transposed apart, so that each thread
+          // holds 8 consecutive columns of a row; it reads their bf16
+          // residuals in one 16-byte load (the chunk's loads all before the
+          // first store) and writes them in two. A block past N takes
+          // epi_store2.
+          uint4 xr[2][2];
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int row = r + 8 * h, cb = c0 + q * 32;
+              xr[q][h] = row < M && cb + 32 <= N
+                             ? *reinterpret_cast<const uint4*>(static_cast<const bf16*>(eu.resid) +
+                                                               (size_t)row * N + cb + t4 * 8)
+                             : make_uint4(0u, 0u, 0u, 0u);
+            }
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int cb = c0 + q * 32;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int k0 = 16 * q + 2 * h;  // group 4 q + j at acc[k0 + 4 j], acc[k0 + 4 j + 1]
+              const uint4 lo = quad_transpose(
+                  make_uint4(__float_as_uint(acc[k0]), __float_as_uint(acc[k0 + 4]),
+                             __float_as_uint(acc[k0 + 8]), __float_as_uint(acc[k0 + 12])),
+                  t4);
+              const uint4 hi = quad_transpose(
+                  make_uint4(__float_as_uint(acc[k0 + 1]), __float_as_uint(acc[k0 + 5]),
+                             __float_as_uint(acc[k0 + 9]), __float_as_uint(acc[k0 + 13])),
+                  t4);
+              if (cb + 32 <= N) {
+                const float a[8] = {__uint_as_float(lo.x), __uint_as_float(hi.x),
+                                    __uint_as_float(lo.y), __uint_as_float(hi.y),
+                                    __uint_as_float(lo.z), __uint_as_float(hi.z),
+                                    __uint_as_float(lo.w), __uint_as_float(hi.w)};
+                float zv[8];
+                epi_resid8<EPI>(eu, h ? rd1 : rd0, cb + t4 * 8, N, a, xr[q][h], zv);
+                if (r + 8 * h < M) {
+                  float4* o = reinterpret_cast<float4*>(static_cast<float*>(eu.out) +
+                                                        (size_t)(r + 8 * h) * N + cb + t4 * 8);
+                  o[0] = make_float4(zv[0], zv[1], zv[2], zv[3]);
+                  o[1] = make_float4(zv[4], zv[5], zv[6], zv[7]);
+                }
+              } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                  epi_store2<EPI>(eu, r + 8 * h, cb + j * 8 + t4 * 2, M, N, acc[k0 + 4 * j],
+                                  acc[k0 + 4 * j + 1]);
+              }
+            }
+          }
         } else {
           // Each chunk first loads every residual it reads, so the loads
           // overlap instead of each waiting behind the last store.
@@ -461,8 +538,8 @@ gemm_sm90(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUt
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int c = c0 + j * 8 + t4 * 2;
-            epi_store2<EPI>(eu, r, c, M, N, acc[4 * j], acc[4 * j + 1], res[j][0]);
-            epi_store2<EPI>(eu, r + 8, c, M, N, acc[4 * j + 2], acc[4 * j + 3], res[j][1]);
+            epi_store2<EPI>(eu, r, c, M, N, acc[4 * j], acc[4 * j + 1], res[j][0], rd0);
+            epi_store2<EPI>(eu, r + 8, c, M, N, acc[4 * j + 2], acc[4 * j + 3], res[j][1], rd1);
           }
         }
 #pragma unroll
@@ -494,18 +571,6 @@ inline EncodeTiledFn encode_tiled() {
     if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(p);
   }
   return fn;
-}
-
-inline int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        sms <= 0)
-      sms = 132;
-  }
-  return sms;
 }
 
 // A bf16 matrix of `outer` rows of `inner` elements, rows `ld` elements
@@ -562,18 +627,22 @@ int launch_gemm_sm90(const bf16* A, const bf16* B, int M, int N, int K, int lda,
   return (int)cudaGetLastError();
 }
 
-// The serving and training FFN's products X . W^T for a torch (out, in)
-// weight W (N x K): x.W1^T (EPI_BIAS_GELU), inter.W2^T (EPI_RESID_F32,
+// The serving and training blocks' products X . W^T for a torch (out, in)
+// weight W (N x K): x.Wqkv^T (EPI_BIAS), ctx.Wo^T (EPI_RESID_ROUND,
+// EPI_RESID_ROUND_DROP), x.W1^T (EPI_BIAS_GELU), inter.W2^T (EPI_RESID_F32,
 // EPI_RESID_F32_DROP) and the FFN backward's t1 replay (EPI_BIAS_T1_GELU).
 // One route for all of them, decided from the shape and the pointers before
 // the launch: gemm_sm90 with a K-major B where TMA can address the operands,
-// else gemm_bf16_tc. The gelu epilogues (an erf per element, about as long
-// as the products at K = 768) take the ping-pong schedule, which overlaps
-// them with the other warpgroup's products. The residual epilogues take the
-// cooperative 128 x 256 tile, which reads fewer bytes per product, unless
-// the 128 x 128 tiles fill the card's waves better (wave_fill). The train
-// forward and its replay see the same M, N, K and operands, so they take the
-// same route and t1 is the forward's bit for bit.
+// else gemm_bf16_tc (tools/gemm_sm90_probe.py: gemm_sm90 is the faster at
+// every M from 32 rows up, for every one of these products). The products
+// over K <= 1024 (16 k-tiles: q/k/v, the out-projection, x.W1^T and its
+// replay), whose epilogues are as long as their products, take the
+// ping-pong schedule, which overlaps one warpgroup's epilogue with the
+// other's products. The longer ones (inter.W2^T) take the cooperative
+// 128 x 256 tile, which reads fewer bytes per product, unless the 128 x 128
+// tiles fill the card's waves better (wave_fill). A forward and its replay
+// see the same M, N, K and operands, so they take the same route and the
+// replayed values are the forward's bit for bit.
 inline double wave_fill(long tiles, int slots) {
   return (double)tiles / (double)(((tiles + slots - 1) / slots) * slots);
 }
@@ -582,11 +651,10 @@ template <int EPI>
 int linear_product(const bf16* X, const bf16* W, int M, int N, int K, EpiArgs e,
                    cudaStream_t st) {
   if (!sm90_gemm_ok(X, W, K, K)) return launch_gemm<EPI>(X, W, M, N, K, K, K, e, st);
-  constexpr bool gelu = EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_T1_GELU;
   const long rows = (M + G9_BM - 1) / G9_BM;
   const long coop = rows * ((N + G9Tile<false>::BN - 1) / G9Tile<false>::BN);
   const long pp = rows * ((N + G9Tile<true>::BN - 1) / G9Tile<true>::BN);
-  if (gelu || wave_fill(coop, sm_count()) < wave_fill(pp, sm_count()))
+  if (K <= 16 * G9_BK || wave_fill(coop, sm_count()) < wave_fill(pp, sm_count()))
     return launch_gemm_sm90<EPI, false, true, true>(X, W, M, N, K, K, K, e, st);
   return launch_gemm_sm90<EPI, false, true, false>(X, W, M, N, K, K, K, e, st);
 }

@@ -93,22 +93,39 @@ def _mask_rows(mask_bias: torch.Tensor, b: int, s: int) -> torch.Tensor:
     return mask_bias.reshape(b, s).float().contiguous()
 
 
+def attention_probs(qkv: torch.Tensor, b: int, mask_bias: torch.Tensor,
+                    num_heads: int):
+    """(q, k, v, probs) of a (B·S, 3H) q/k/v: the heads (B, S, heads, hd) in
+    float32 and softmax(q·kᵀ·scale + mask) (B, heads, S, S) in float32."""
+    h = qkv.shape[-1] // 3
+    s, hd = qkv.shape[0] // b, h // num_heads
+    q, k, v = (t.reshape(b, s, num_heads, hd).float()
+               for t in qkv.split(h, dim=-1))
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / hd ** 0.5)
+    probs = torch.softmax(
+        scores + _mask_rows(mask_bias, b, s)[:, None, None, :], dim=-1)
+    return q, k, v, probs
+
+
+def attention_context(probs: torch.Tensor, v: torch.Tensor,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """ctx (B·S, H) = probs·v per head, rounded to ``dtype``; probs (B,
+    heads, S, S) already rounded to it."""
+    b, s, heads, hd = v.shape
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v).to(dtype).reshape(
+        b * s, heads * hd)
+
+
 def attention_block_plain(x: torch.Tensor, p: Dict[str, torch.Tensor],
                           mask_bias: torch.Tensor, num_heads: int,
                           eps: float = 1e-12) -> torch.Tensor:
     """y = LN(x + ctx·Wo + bo), ctx = softmax(q·kᵀ·scale + mask)·v per head."""
     b, s, h = x.shape
-    hd = h // num_heads
-    scale = 1.0 / (hd ** 0.5)
     dt = x.dtype
     xf = x.reshape(b * s, h)
     qkv = dense(xf, p["qkv_weight"], p["qkv_bias"])
-    q, k, v = (t.reshape(b, s, num_heads, hd).float()
-               for t in qkv.split(h, dim=-1))
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
-    scores = scores * scale + _mask_rows(mask_bias, b, s)[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1).to(dt).float()
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs, v).to(dt).reshape(b * s, h)
+    _, _, v, probs = attention_probs(qkv, b, mask_bias, num_heads)
+    ctx = attention_context(probs.to(dt).float(), v, dt)
     attn = dense(ctx, p["out_weight"], p["out_bias"])
     y = layer_norm(xf.float() + attn.float(), p["ln_weight"], p["ln_bias"],
                    eps)

@@ -13,10 +13,11 @@ Counterparts of ``realise_tpu/ops/pallas/bert_block_train.py``
 * :func:`ffn_train_backward` ← ``_ffn_bwd_impl`` (LN backward from the
   rounded z, recomputes t1 = x·W1 + b1, then dx and every gradient).
 
-:func:`backward_gemm` runs one product of the two backward kernels alone
-(their Hopper GEMM, ``csrc/gemm_sm90.cuh``), and :func:`forward_gemm` one
-product of the FFN blocks (``ffn_block`` and both FFN train kernels) on the
-route they take, for tests and timing.
+For tests and timing, on the routes the blocks take: :func:`backward_gemm`
+runs one product of the two backward kernels alone (their Hopper GEMM,
+``csrc/gemm_sm90.cuh``), :func:`forward_gemm` one weight product of the
+forward blocks (serving and training, and the backward's replays of them),
+and :func:`attention_core` the attention core alone.
 
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel (CUDA C++ for sm_90a, ``csrc/bert_block_train.cu``) or
@@ -51,16 +52,28 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from realise_tpu_torch.ops.kernels import ATTN_MAX_HEAD_DIM, ATTN_MAX_SEQ
-from realise_tpu_torch.ops.kernels.bert_block import _check, _check_x, _stream
+from realise_tpu_torch.ops.kernels.bert_block import (
+    _check,
+    _check_x,
+    _stream,
+    attention_context,
+    attention_probs,
+)
 from realise_tpu_torch.ops.layers import M32, dense, layer_norm, mix32, mul32
 
 SITE_PROBS, SITE_ATTN_OUT, SITE_FFN_OUT = 1, 2, 3
-# Epilogues of the FFN products (csrc/bert_block_common.cuh EPI_*): x·W1ᵀ
-# with bias and gelu; inter·W2ᵀ into the float32 residual, without and with
-# the output dropout; the backward's t1 replay (t1 and gelu(t1)).
-EPI_BIAS_GELU, EPI_RESID_F32, EPI_RESID_F32_DROP, EPI_BIAS_T1_GELU = 1, 3, 5, 9
-FORWARD_MODES = (EPI_BIAS_GELU, EPI_RESID_F32, EPI_RESID_F32_DROP,
-                 EPI_BIAS_T1_GELU)
+# Epilogues of the forward products (csrc/bert_block_common.cuh EPI_*):
+# x·Wqkvᵀ with its bias; x·W1ᵀ with bias and gelu; ctx·Woᵀ with its bias into
+# the float32 residual, rounded, without (serving) and with (training) the
+# output dropout; inter·W2ᵀ into the float32 residual, without and with the
+# output dropout; the FFN backward's t1 replay (t1 and gelu(t1)).
+EPI_BIAS, EPI_BIAS_GELU, EPI_RESID_ROUND, EPI_RESID_F32 = 0, 1, 2, 3
+EPI_RESID_ROUND_DROP, EPI_RESID_F32_DROP, EPI_BIAS_T1_GELU = 4, 5, 9
+FORWARD_MODES = (EPI_BIAS, EPI_BIAS_GELU, EPI_RESID_ROUND, EPI_RESID_F32,
+                 EPI_RESID_ROUND_DROP, EPI_RESID_F32_DROP, EPI_BIAS_T1_GELU)
+# The dropout site each dropping mode has in the blocks.
+FORWARD_SITES = {EPI_RESID_ROUND_DROP: SITE_ATTN_OUT,
+                 EPI_RESID_F32_DROP: SITE_FFN_OUT}
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 
@@ -158,22 +171,37 @@ def _ln_bwd(z32, dy32, g, eps):
     return dz, (dy32 * norm).sum(0), dy32.sum(0)
 
 
+def _attn_core(qkv, b, mask_bias, seed, num_heads, p_rate):
+    """q, k, v, probs, the probabilities' keep multiplier (None without
+    dropout), the dropped probabilities rounded to qkv's dtype, and ctx."""
+    dt = qkv.dtype
+    q, k, v, probs = attention_probs(qkv, b, mask_bias, num_heads)
+    keep = None
+    if p_rate > 0.0:
+        keep = probs_keep_mask(seed, b, num_heads, qkv.shape[0] // b,
+                               1.0 - p_rate, qkv.device)
+    probs_d = (probs * keep if keep is not None else probs).to(dt).float()
+    return q, k, v, probs, keep, probs_d, attention_context(probs_d, v, dt)
+
+
+def attention_core_plain(qkv, mask_bias, seed, num_heads, p_rate=0.0):
+    """ctx (B, S, H) = drop_p(softmax(q·kᵀ·d^-½ + mask))·v per head of the
+    (B, S, 3H) q/k/v, the probabilities' dropout stream per (example, head)
+    from ``seed``."""
+    b, s, h3 = qkv.shape
+    ctx = _attn_core(qkv.reshape(b * s, h3), b, mask_bias, seed, num_heads,
+                     p_rate)[-1]
+    return ctx.reshape(b, s, h3 // 3)
+
+
 def _attn_recompute(x, p, mask_bias, seed, num_heads, p_rate, h_rate):
     """q/k/v, probs, mask, ctx and the attention output of the forward."""
     b, s, h = x.shape
-    hd = h // num_heads
     dt = x.dtype
     xf = x.reshape(b * s, h)
     qkv = dense(xf, p["qkv_weight"], p["qkv_bias"])
-    q, k, v = (t.reshape(b, s, num_heads, hd).float()
-               for t in qkv.split(h, dim=-1))
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / hd ** 0.5)
-    probs = torch.softmax(scores + mask_bias.reshape(b, 1, 1, s).float(), -1)
-    keep = None
-    if p_rate > 0.0:
-        keep = probs_keep_mask(seed, b, num_heads, s, 1.0 - p_rate, x.device)
-    probs_d = (probs * keep if keep is not None else probs).to(dt).float()
-    ctx = torch.einsum("bhqk,bkhd->bqhd", probs_d, v).to(dt).reshape(b * s, h)
+    q, k, v, probs, keep, probs_d, ctx = _attn_core(qkv, b, mask_bias, seed,
+                                                    num_heads, p_rate)
     attn = dense(ctx, p["out_weight"], p["out_bias"])
     keep_h = None
     if h_rate > 0.0:
@@ -310,8 +338,10 @@ def _lib() -> ctypes.CDLL:
             fn.restype = i
         lib.rt_train_gemm.argtypes = [p] * 4 + [i] * 4 + [p]
         lib.rt_train_gemm.restype = i
-        lib.rt_forward_gemm.argtypes = [p] * 6 + [i] * 5 + [d, i, p]
+        lib.rt_forward_gemm.argtypes = [p] * 6 + [i] * 6 + [d, i, p]
         lib.rt_forward_gemm.restype = i
+        lib.rt_attention_core.argtypes = [p] * 3 + [i] * 4 + [f, d, i, p]
+        lib.rt_attention_core.restype = i
         for fn in (lib.rt_train_colsum_scratch, lib.rt_train_split_scratch):
             fn.argtypes, fn.restype = [i, i], ctypes.c_longlong
         _LIB = lib
@@ -410,18 +440,40 @@ def backward_gemm(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def _site(mode: int, site) -> int:
+    return FORWARD_SITES.get(mode, SITE_FFN_OUT) if site is None else int(site)
+
+
 def forward_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                        mode: int, resid=None, seed: int = 0,
-                       rows_per_example: int = 1, h_rate: float = 0.0):
-    """One FFN product a·wᵀ (a (M, K), w a torch (N, K) weight) with the
-    epilogue ``mode`` (:data:`FORWARD_MODES`), in the blocks' rounding:
-    EPI_BIAS_GELU → gelu(round(a·wᵀ) + b); EPI_RESID_F32 → float32 (resid +
-    b) + a·wᵀ; EPI_RESID_F32_DROP → float32 resid + (a·wᵀ + b) · keep (the
-    FFN output site, examples of ``rows_per_example`` rows); EPI_BIAS_T1_GELU
-    → (t1, gelu(t1)) with t1 = round(a·wᵀ) + b."""
+                       rows_per_example: int = 1, h_rate: float = 0.0,
+                       site=None):
+    """One weight product a·wᵀ (a (M, K), w a torch (N, K) weight) with the
+    epilogue ``mode`` (:data:`FORWARD_MODES`), in the blocks' rounding, t =
+    round(a·wᵀ) + b: EPI_BIAS → t; EPI_BIAS_GELU → gelu(t); EPI_RESID_ROUND →
+    float32 resid + t; EPI_RESID_ROUND_DROP → float32 resid + round(t ·
+    keep); EPI_RESID_F32 → float32 (resid + b) + a·wᵀ; EPI_RESID_F32_DROP →
+    float32 resid + (a·wᵀ + b) · keep; EPI_BIAS_T1_GELU → (t, gelu(t)). keep
+    is the hidden dropout site ``site`` (by default the one the blocks use
+    for ``mode``, :data:`FORWARD_SITES`) over examples of
+    ``rows_per_example`` rows."""
     dt = a.dtype
-    if mode in (EPI_BIAS_GELU, EPI_BIAS_T1_GELU):
+
+    def keep():
+        m, n = resid.shape
+        s = rows_per_example
+        return block_keep_mask(seed, _site(mode, site), m // s, s, n,
+                               1.0 - h_rate, a.device).reshape(m, n)
+
+    if mode in (EPI_BIAS, EPI_BIAS_GELU, EPI_BIAS_T1_GELU,
+                EPI_RESID_ROUND, EPI_RESID_ROUND_DROP):
         t1 = dense(a, w, bias)
+        if mode == EPI_BIAS:
+            return t1
+        if mode in (EPI_RESID_ROUND, EPI_RESID_ROUND_DROP):
+            if mode == EPI_RESID_ROUND_DROP and h_rate > 0.0:
+                t1 = (t1.float() * keep()).to(dt)
+            return resid.float() + t1.float()
         t = t1.float()
         inter = ((t * 0.5) * (1.0 + torch.erf(t * _INV_SQRT2))).to(dt)
         return inter if mode == EPI_BIAS_GELU else (t1, inter)
@@ -432,22 +484,19 @@ def forward_gemm_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"mode {mode} is not one of {FORWARD_MODES}")
     out = part + bias.float()
     if h_rate > 0.0:
-        m, n = out.shape
-        s = rows_per_example
-        out = out * block_keep_mask(seed, SITE_FFN_OUT, m // s, s, n,
-                                    1.0 - h_rate, a.device).reshape(m, n)
+        out = out * keep()
     return resid.float() + out
 
 
 def forward_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                  mode: int, resid=None, seed: int = 0,
-                 rows_per_example: int = 1, h_rate: float = 0.0):
-    """:func:`forward_gemm_plain`'s product on the route the FFN blocks take
+                 rows_per_example: int = 1, h_rate: float = 0.0, site=None):
+    """:func:`forward_gemm_plain`'s product on the route the blocks take
     (``csrc/gemm_sm90.cuh`` linear_product). For tests and timing; the blocks
     never call it."""
     if a.device.type == "cpu":
         return forward_gemm_plain(a, w, bias, mode, resid, seed,
-                                  rows_per_example, h_rate)
+                                  rows_per_example, h_rate, site)
     if a.device.type != "cuda":
         raise ValueError(f"the kernels run on CUDA tensors, got {a.device}")
     if mode not in FORWARD_MODES:
@@ -465,7 +514,8 @@ def forward_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _check("a", a, (m, k), dt, dev)
     _check("w", w, (n, k), dt, dev)
     _check("bias", bias, (n,), f32, dev)
-    with_resid = mode in (EPI_RESID_F32, EPI_RESID_F32_DROP)
+    with_resid = mode in (EPI_RESID_ROUND, EPI_RESID_F32, EPI_RESID_ROUND_DROP,
+                          EPI_RESID_F32_DROP)
     if with_resid:
         _check("resid", resid, (m, n), dt, dev)
     out = torch.empty((m, n), dtype=f32 if with_resid else dt, device=dev)
@@ -474,16 +524,44 @@ def forward_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     _run("rt_forward_gemm",
          *_ptrs(a, w, bias), resid.data_ptr() if with_resid else None,
          *_ptrs(out, out2),
-         m, n, k, rows_per_example, mode,
+         m, n, k, rows_per_example, mode, _site(mode, site),
          ctypes.byref(_dropout_args(seed, 0.0, h_rate)), _DTYPE_CODE[dt],
          _stream(dev))
     return (out, out2) if mode == EPI_BIAS_T1_GELU else out
 
 
+def attention_core(qkv: torch.Tensor, mask_bias: torch.Tensor, seed: int,
+                   num_heads: int, p_rate: float = 0.0) -> torch.Tensor:
+    """:func:`attention_core_plain` on the attention blocks' core (the
+    persistent tensor-core core for bf16 at head_dim 64). For tests and
+    timing; the blocks never call it."""
+    if qkv.device.type == "cpu":
+        return attention_core_plain(qkv, mask_bias, seed, num_heads, p_rate)
+    _check_x(qkv)
+    b, s, h3 = qkv.shape
+    h = h3 // 3
+    if h3 % 3 or h % num_heads:
+        raise ValueError(f"q/k/v width {h3} is not 3 x {num_heads} heads")
+    if h // num_heads > ATTN_MAX_HEAD_DIM or s > ATTN_MAX_SEQ:
+        raise ValueError(f"attention kernel holds head_dim <= {ATTN_MAX_HEAD_DIM} "
+                         f"and S <= {ATTN_MAX_SEQ}, got {h // num_heads} and {s}")
+    mask = mask_bias.reshape(b, s).float().contiguous()
+    _check("mask_bias", mask, (b, s), torch.float32, qkv.device)
+    ctx = torch.empty((b, s, h), dtype=qkv.dtype, device=qkv.device)
+    _run("rt_attention_core", *_ptrs(qkv, mask, ctx), b, s, h, num_heads,
+         1.0 / (h // num_heads) ** 0.5,
+         ctypes.byref(_dropout_args(seed, p_rate, 0.0)),
+         _DTYPE_CODE[qkv.dtype], _stream(qkv.device))
+    return ctx
+
+
 # ---------------------------------------------------------- the wrappers
 def attention_train_forward(x, p, mask_bias, seed, num_heads, eps=1e-12,
-                            p_rate=0.0, h_rate=0.0):
-    """Kernel #3: the attention sub-block's training forward → y (B, S, H)."""
+                            p_rate=0.0, h_rate=0.0, scratch=None):
+    """Kernel #3: the attention sub-block's training forward → y (B, S, H).
+
+    ``scratch``, a dict, receives the kernel's q/k/v, ctx and pre-LN z32
+    buffers (a test hook of the CUDA path)."""
     if x.device.type == "cpu":
         return attention_train_forward_plain(x, p, mask_bias, seed, num_heads,
                                              eps, p_rate, h_rate)
@@ -502,12 +580,17 @@ def attention_train_forward(x, p, mask_bias, seed, num_heads, eps=1e-12,
          ctypes.byref(_dropout_args(seed, p_rate, h_rate)), _DTYPE_CODE[dt],
          _stream(dev))
     attention_train_forward.launches += 1
+    if scratch is not None:
+        scratch.update(qkv=qkv, ctx=ctx, z32=z32)
     return y
 
 
 def attention_train_backward(x, dy, p, mask_bias, seed, num_heads,
-                             eps=1e-12, p_rate=0.0, h_rate=0.0):
-    """Kernel #4: (dx, float32 gradients of the packed parameters)."""
+                             eps=1e-12, p_rate=0.0, h_rate=0.0, scratch=None):
+    """Kernel #4: (dx, float32 gradients of the packed parameters).
+
+    ``scratch``, a dict, receives the q/k/v, ctx and pre-LN z32 that the
+    kernel recomputed (a test hook of the CUDA path)."""
     if x.device.type == "cpu":
         return attention_train_backward_plain(x, dy, p, mask_bias, seed,
                                               num_heads, eps, p_rate, h_rate)
@@ -516,9 +599,9 @@ def attention_train_backward(x, dy, p, mask_bias, seed, num_heads,
     b, s, h = x.shape
     m, dev, dt, f32 = b * s, x.device, x.dtype, torch.float32
     e = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
-    scratch = [e(m, 3 * h), e(m, h), e(m, h, dtype=f32), e(m, h, dtype=f32),
-               e(m, h, dtype=f32), e(m, h), e(m, h), e(m, 3 * h),
-               _partials(m, 3 * h, dev), _splits(3 * h, h, dev)]
+    bufs = [e(m, 3 * h), e(m, h), e(m, h, dtype=f32), e(m, h, dtype=f32),
+            e(m, h, dtype=f32), e(m, h), e(m, h), e(m, 3 * h),
+            _partials(m, 3 * h, dev), _splits(3 * h, h, dev)]
     dx = torch.empty_like(x)
     grads = {"qkv_weight": e(3 * h, h, dtype=f32),
              "qkv_bias": e(3 * h, dtype=f32),
@@ -526,12 +609,14 @@ def attention_train_backward(x, dy, p, mask_bias, seed, num_heads,
              "ln_weight": e(h, dtype=f32), "ln_bias": e(h, dtype=f32)}
     _run("rt_attention_train_bwd",
          *_ptrs(x, dy, p["qkv_weight"], p["qkv_bias"], p["out_weight"],
-                p["out_bias"], p["ln_weight"], mask, *scratch, dx,
+                p["out_bias"], p["ln_weight"], mask, *bufs, dx,
                 *grads.values()),
          b, s, h, num_heads, 1.0 / (h // num_heads) ** 0.5, eps,
          ctypes.byref(_dropout_args(seed, p_rate, h_rate)), _DTYPE_CODE[dt],
          _stream(dev))
     attention_train_backward.launches += 1
+    if scratch is not None:
+        scratch.update(qkv=bufs[0], ctx=bufs[1], z32=bufs[2])
     return dx, grads
 
 

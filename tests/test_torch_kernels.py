@@ -237,3 +237,37 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda(layers):
         tbb.attention_block(x, p_att, torch.zeros((B, S)), 2)
     with pytest.raises(ValueError, match="CUDA"):
         tbb.ffn_block(x, p_ffn)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_modes_compose_attention_block(layers, dtype):
+    """The serving block's three launches on their one-call entry points
+    (q/k/v with EPI_BIAS, the core without dropout, the out-projection into
+    the float32 residual with EPI_RESID_ROUND), then the LayerNorm, are
+    attention_block_plain bit for bit, and agree with the JAX package's
+    interpret-mode Pallas attention_block as the plain version does."""
+    from realise_tpu_torch.ops import layers as tlayers
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+
+    jl, pl = layers
+    x, mask = _inputs(seed=5)
+    dt = getattr(torch, dtype)
+    p, _ = pl.kernel_params(dt)
+    bias = tbert.attention_bias_from_mask(torch.tensor(mask), dt)
+    xt = _to_t(x, dt)
+    h = CFG.hidden_size
+    xf = xt.reshape(B * S, h)
+    qkv = tbt.forward_gemm(xf, p["qkv_weight"], p["qkv_bias"], tbt.EPI_BIAS)
+    ctx = tbt.attention_core(qkv.reshape(B, S, 3 * h), bias, 0,
+                             CFG.num_attention_heads)
+    z = tbt.forward_gemm(ctx.reshape(B * S, h), p["out_weight"], p["out_bias"],
+                         tbt.EPI_RESID_ROUND, xf)
+    y = tlayers.layer_norm(z, p["ln_weight"], p["ln_bias"],
+                           PCFG.layer_norm_eps).to(dt).reshape(B, S, h)
+    assert torch.equal(y, tbb.attention_block_plain(
+        xt, p, bias, PCFG.num_attention_heads, PCFG.layer_norm_eps))
+    want = _jax_attention(jl, x, mask, getattr(jnp, dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(y.numpy(), want, atol=F32_TOL)
+    else:
+        _assert_bf16_close(y.float().numpy(), want)

@@ -402,3 +402,102 @@ def test_forward_gemm_refuses_other_devices_and_modes():
         tbt.forward_gemm(meta, meta, meta[0], tbt.EPI_BIAS_GELU)
     with pytest.raises(ValueError, match="mode 7"):
         tbt.forward_gemm(x.reshape(16, 16), p["w2"].t().contiguous(), p["b1"], 7)
+
+
+# ------------------------- the attention products and core alone
+def _attention_case(dtype, seed=11, b=2, s=8, h=16, heads=2):
+    jl = _jax_layer(seed, h, 2 * h)
+    att, _ = _port_params(jl)
+    p = tbt.pack_attention([att[k].detach() for k in tbt.ATTN_PARAMS], dtype)
+    x, _, mask = _inputs(b, s, h, seed=seed)
+    bias = attention_bias_from_mask(jnp.asarray(mask), jnp.float32)
+    return jl, p, torch.tensor(x).to(dtype), bias, heads
+
+
+def _compose_attention(x, p, bias, seed, heads, rate, mode):
+    """q/k/v (EPI_BIAS), the core, then the out-projection into the float32
+    residual (``mode``), each on its one-call entry point; y = LN(z)."""
+    b, s, h = x.shape
+    xf = x.reshape(b * s, h)
+    qkv = tbt.forward_gemm(xf, p["qkv_weight"], p["qkv_bias"], tbt.EPI_BIAS)
+    ctx = tbt.attention_core(qkv.reshape(b, s, 3 * h), bias, seed, heads, rate)
+    z = tbt.forward_gemm(ctx.reshape(b * s, h), p["out_weight"], p["out_bias"],
+                         mode, xf, seed=seed, rows_per_example=s, h_rate=rate)
+    y = tlayers.layer_norm(z, p["ln_weight"], p["ln_bias"], 1e-12)
+    return z, y.to(x.dtype).reshape(b, s, h)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_forward_gemm_plain_attention_modes(dtype):
+    """The q/k/v and out-projection epilogues of the one-product entry
+    point: EPI_BIAS is dense's t = round(a·wᵀ) + b; EPI_RESID_ROUND is x + t
+    in float32; EPI_RESID_ROUND_DROP is x + round(t · keep) with the
+    attention output site's mask (its default site), and the same as
+    EPI_RESID_ROUND without dropout."""
+    _, p, x, _, _ = _attention_case(dtype)
+    xf = x.reshape(16, 16)
+    w, bias = p["out_weight"], p["out_bias"]
+    t = tlayers.dense(xf, w, bias)
+    assert torch.equal(tbt.forward_gemm(xf, w, bias, tbt.EPI_BIAS), t)
+    z = tbt.forward_gemm(xf, w, bias, tbt.EPI_RESID_ROUND, xf)
+    assert z.dtype == torch.float32
+    assert torch.equal(z, xf.float() + t.float())
+    assert torch.equal(tbt.forward_gemm(xf, w, bias, tbt.EPI_RESID_ROUND_DROP,
+                                        xf, seed=3, rows_per_example=8), z)
+    keep = tbt.block_keep_mask(3, tbt.SITE_ATTN_OUT, 2, 8, 16, 0.8,
+                               "cpu").reshape(16, 16)
+    zd = tbt.forward_gemm(xf, w, bias, tbt.EPI_RESID_ROUND_DROP, xf, seed=3,
+                          rows_per_example=8, h_rate=0.2)
+    assert torch.equal(zd, xf.float() + (t.float() * keep).to(dtype).float())
+    other = tbt.forward_gemm(xf, w, bias, tbt.EPI_RESID_ROUND_DROP, xf, seed=3,
+                             rows_per_example=8, h_rate=0.2,
+                             site=tbt.SITE_FFN_OUT)
+    assert not torch.equal(other, zd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_modes_compose_the_train_forward(dtype, rate):
+    """q/k/v, the core and the dropped out-projection, composed, then the
+    LayerNorm, are attention_train_forward_plain bit for bit: the three
+    launches of the train forward (and of its backward's recompute)."""
+    _, p, x, bias, heads = _attention_case(dtype)
+    tbias = torch.tensor(np.asarray(bias)).reshape(2, 8)
+    _, y = _compose_attention(x, p, tbias, 5, heads, rate,
+                              tbt.EPI_RESID_ROUND_DROP)
+    want = tbt.attention_train_forward_plain(x, p, tbias, 5, heads, 1e-12,
+                                             rate, rate)
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_modes_match_the_pallas_attention_forward(rate):
+    """The composed launches against the JAX package's interpret-mode Pallas
+    attention train forward on the same weights and inputs, float32; H=256
+    takes the two-samples-per-hash stream at the output site."""
+    jl, p, x, bias, heads = _attention_case(torch.float32, seed=12, h=256,
+                                            heads=4)
+    tbias = torch.tensor(np.asarray(bias)).reshape(2, 8)
+    _, y = _compose_attention(x, p, tbias, 6, heads, rate,
+                              tbt.EPI_RESID_ROUND_DROP)
+    want = jbt._attn_fwd_impl(jnp.asarray(x.numpy()), jl["attention"], bias,
+                              jnp.array([6], jnp.int32), heads, 1e-12, rate,
+                              rate, True)[0]
+    np.testing.assert_allclose(y.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_attention_core_routes_to_plain_and_refuses_other_devices():
+    """For a CPU tensor the core's entry point IS its plain version (the
+    forward's ctx); a tensor elsewhere raises before any launch."""
+    _, p, x, bias, heads = _attention_case(torch.bfloat16)
+    tbias = torch.tensor(np.asarray(bias)).reshape(2, 8)
+    qkv = tlayers.dense(x.reshape(16, 16), p["qkv_weight"], p["qkv_bias"])
+    ctx = tbt.attention_core(qkv.reshape(2, 8, 48), tbias, 4, heads, 0.2)
+    assert ctx.shape == (2, 8, 16) and ctx.dtype == torch.bfloat16
+    assert torch.equal(ctx, tbt.attention_core_plain(qkv.reshape(2, 8, 48),
+                                                     tbias, 4, heads, 0.2))
+    assert torch.equal(ctx.reshape(16, 16),
+                       tbt._attn_recompute(x, p, tbias, 4, heads, 0.2, 0.0)[6])
+    with pytest.raises(ValueError, match="CUDA"):
+        tbt.attention_core(torch.empty((2, 8, 48), device="meta"), tbias, 4,
+                           heads)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""Time the FFN's products on each GEMM of the port, on one NVIDIA H100.
+"""Time the blocks' weight products on each GEMM of the port, on one NVIDIA H100.
 
     python3 tools/gemm_sm90_probe.py      # from the repository root; needs a card
 
 Builds tools/gemm_sm90_probe.cu (realise_tpu_torch's GEMM headers, a plain C
-entry point) with nvcc into build/, then times x·W1ᵀ with bias and gelu
+entry point) with nvcc into build/, then times the attention's x·Wqkvᵀ with
+its bias (EPI_BIAS, N=2304, K=768) and ctx·Woᵀ into the float32 residual,
+rounded, without and with the output dropout (EPI_RESID_ROUND,
+EPI_RESID_ROUND_DROP, N=768, K=768), and the FFN's x·W1ᵀ with bias and gelu
 (EPI_BIAS_GELU, N=3072, K=768) and inter·W2ᵀ into the float32 residual
 without and with the output dropout (EPI_RESID_F32, EPI_RESID_F32_DROP,
 N=768, K=3072) at M = B*S from one sentence of bucket 32 to B=256 at
@@ -12,8 +15,9 @@ S=128, on the three routes linear_product chooses between: gemm_bf16_tc
 (mma.sync), gemm_sm90 cooperative (128 x 256 tiles) and gemm_sm90
 ping-pong (128 x 128 tiles). Each time is the median of 30 CUDA-event
 timings, the L2 flushed before each; every route's output is held to the
-first's (bf16 output within 2^-7 of its largest value, float32 within
-1e-4). Prints the card's name and power limit first.
+first's (outputs with a bf16 rounding within 2^-7 of their largest value,
+the unrounded float32 ones within 1e-4). Prints the card's name and power
+limit first.
 """
 
 from __future__ import annotations
@@ -27,7 +31,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 ROUTES = ("gemm_bf16_tc", "gemm_sm90 cooperative", "gemm_sm90 ping-pong")
 ROWS = (32, 512, 2048, 4096, 8192, 32768)
-PRODUCTS = (("x.W1^T gelu", 1, 3072, 768), ("inter.W2^T resid", 3, 768, 3072),
+PRODUCTS = (("x.Wqkv^T bias", 0, 2304, 768), ("ctx.Wo^T resid", 2, 768, 768),
+            ("ctx.Wo^T resid drop", 4, 768, 768),
+            ("x.W1^T gelu", 1, 3072, 768), ("inter.W2^T resid", 3, 768, 3072),
             ("inter.W2^T resid drop", 5, 768, 3072))
 
 
@@ -82,9 +88,10 @@ def main() -> int:
             w = (torch.randn((n, k), generator=gen) * k ** -0.5).to(dev, torch.bfloat16)
             bias = (torch.randn((n,), generator=gen) * 0.1).to(dev)
             resid = torch.randn((m, n), generator=gen).to(dev, torch.bfloat16)
-            f32 = mode != 1
+            f32 = mode not in (0, 1)
             out = torch.empty((m, n), dtype=torch.float32 if f32 else torch.bfloat16,
                               device=dev)
+            tol = 1e-4 if mode in (3, 5) else 2.0 ** -7
             times, first = [], None
             for gemm in range(len(ROUTES)):
                 def fn():
@@ -97,7 +104,7 @@ def main() -> int:
                 got = out.float().clone()
                 first = got if first is None else first
                 rel = ((got - first).abs().max() / first.abs().max()).item()
-                if rel > (1e-4 if f32 else 2.0 ** -7):
+                if rel > tol:
                     raise RuntimeError(f"{ROUTES[gemm]} {label} M={m}: {rel:.2e} off")
                 times.append(time_ms(fn))
             print(f"M={m} {label} (N={n}, K={k}): " + ", ".join(

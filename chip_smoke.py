@@ -46,13 +46,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    the out-projection with dropout, W1 and W2): time, TFLOP/s and
    ``torch.matmul``'s time on the same inputs;
 8. training at full width: the published arch3 preset in bfloat16 at its
-   published dropout (0.1), seeded random weights and glyphs, synthetic
-   sentences featurized at bucket 128, ``realise_tpu_torch.training.Trainer``
-   on the card for 1 + 5 steps at B=32 and 2 steps at B=256, then one more
-   B=256 step under the profiler (device time by kernel name); every loss
-   must be finite and every encoder layer must have gone through the four
-   train kernels each step; then, in float32 at dropout 0 on one B=32 batch,
-   the kernel path's loss and gradients must agree with the plain path's.
+   published dropout (0.1), seeded random weights, the procedural glyph
+   table and the pinyin tables of the synthetic vocab, synthetic sentences
+   featurized at bucket 128, ``realise_tpu_torch.training.Trainer`` on the
+   card on the factorized streams for 1 + 5 steps at B=32 and 2 steps at
+   B=256, then one more B=256 step under the profiler (device time by
+   kernel name); every loss must be finite and every encoder layer must have
+   gone through the four train kernels each step; then the split of a B=32
+   and a B=256 step by stream (CUDA events around each part) on the
+   factorized and on the per-token path, with kernel time, host clock and
+   peak memory; then, in float32 at dropout 0 on one B=32 batch, the kernel
+   path's loss and gradients must agree with the plain path's, and the
+   factorized streams' loss, gradients and BatchNorm statistics with the
+   per-token streams'; two bf16 backward calls must give the same bits for
+   every gradient (the pinyin embeddings, the GRU and the CharResNet too);
+9. eval and scoring: the trained model saved as a port checkpoint, loaded
+   as ``cli/test`` loads it and scored by ``cli.common.evaluate_model`` on
+   1024 synthetic sentences in batches of 32 with the serving kernels
+   (19 launches of each per batch); metrics finite, files written, and the
+   kernel path's argmax equal to the plain path's on >= 99% of the clearly
+   decided tokens of one batch.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -61,7 +74,9 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -99,6 +114,10 @@ TRAIN_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # (6.51e-4 to 6.57e-4 over six runs on an H100); float32 products at TF32
 # precision would move it past the limit.
 PATH_LOSS_REL, PATH_GRAD_REL = 1e-5, 1.5e-3
+# The factorized streams against the per-token streams (same limits for the
+# loss and the gradients, float32, dropout 0): the BatchNorm running
+# statistics, whose weighted and per-token sums differ in order only.
+FACTOR_BN_TOL = 1e-5
 TRAIN_RATE = 0.1  # the published dropout of both sites
 # The gemm_bf16_tc products a bf16 train backward still runs (by epilogue
 # mode, bert_block_common.cuh): none. Every product takes gemm_sm90, the
@@ -281,14 +300,22 @@ def ffn_library(x, p, eps=1e-12, rate=0.0):
 
 def kernel_breakdown(fn, iters=5):
     """[(ms per call, CUDA kernel name)] of fn from torch.profiler, largest
-    first; empty if the profiler recorded no device time."""
+    first; empty if the profiler recorded no device time. One more call of
+    fn goes first, in the schedule's warm-up step: a trace loses or clips
+    kernels at its start (a B=256 backward profile once lacked the first
+    product of all its calls, and 3-call profiles read the first call's
+    first launch as nothing, PERF.md §6)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters,
+                                   repeat=1)) as prof:
+        for i in range(iters + 1):
             fn()
-        torch.cuda.synchronize()
+            if i == iters:
+                torch.cuda.synchronize()
+            prof.step()
     rows = []
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
@@ -465,20 +492,28 @@ def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
         fail(f"logits shape {tuple(got.shape)}")
     if not bool(torch.isfinite(got).all()):
         fail("non-finite logits")
-    valid = batch["masks"].bool()
+    check_argmax("serve", got, want, batch["masks"].bool())
+    return launches
+
+
+def check_argmax(phase, got, want, valid, logits_within=True):
+    """The kernel path's logits ``got`` against the plain path's ``want``:
+    every valid logit within LOGIT_TOL (unless ``logits_within`` is off),
+    and the argmax kept on >= 99% of the valid tokens whose top-2 margin on
+    the plain path exceeds it."""
     diff = (got.float() - want.float()).abs()[valid].max().item()
     same = got.argmax(-1) == want.argmax(-1)
     top2 = want.float().topk(2, dim=-1).values
     clear = valid & (top2[..., 0] - top2[..., 1] > LOGIT_TOL)
     agree = same[clear].float().mean().item()
-    log(f"serve: kernel vs plain path logits max diff {diff:.4f} (tol "
+    log(f"{phase}: kernel vs plain path logits max diff {diff:.4f} (tol "
         f"{LOGIT_TOL}); argmax agreement {agree:.4%} (need "
         f"{ARGMAX_AGREE:.0%}) over the {int(clear.sum())} of "
         f"{int(valid.sum())} valid tokens with a top-2 margin above "
         f"{LOGIT_TOL}, {same[valid].float().mean().item():.4%} over all")
-    if diff > LOGIT_TOL or not clear.any() or agree < ARGMAX_AGREE:
-        fail("kernel path disagrees with the plain path")
-    return launches
+    if ((logits_within and diff > LOGIT_TOL) or not clear.any()
+            or agree < ARGMAX_AGREE):
+        fail(f"{phase}: the kernel path disagrees with the plain path")
 
 
 # ------------------------------------------------------------ train kernels
@@ -855,20 +890,113 @@ def train_batches(cfg, n, batch_size, seed):
 
 
 def seeded_model(cfg, seed):
+    """Seeded weights, the procedural glyph table of the synthetic vocab
+    (non-CJK tokens share the zero image, as in the real vocab) and its
+    pinyin tables: the tables the training CLI installs."""
     import torch
 
+    from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.text.glyphs import build_glyph_table
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
 
-    gen = torch.Generator().manual_seed(seed)
-    model = Realise(cfg, generator=gen)
-    model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
-                                     generator=gen) < 0.5).float())
+    vocab = build_synthetic_vocab(size=cfg.vocab_size,
+                                  cjk_chars=REAL_VOCAB_CJK_CHARS)
+    model = Realise(cfg, generator=torch.Generator().manual_seed(seed))
+    model.install_glyphs(build_glyph_table(
+        vocab, num_fonts=cfg.num_fonts,
+        use_traditional_font=cfg.use_traditional_font))
+    feat = Featurizer(WordPieceTokenizer(vocab_to_dict(vocab)), cfg)
+    model.install_pho_vocab_tables(*feat.pho2_tables())
     return model
 
 
+class StepSplit:
+    """CUDA events around each part of a training step that the model and
+    the Trainer bracket (``Realise.span``), summed by name."""
+
+    def __init__(self):
+        self.events = []
+
+    @contextlib.contextmanager
+    def span(self, name):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self.events.append((name, start, end))
+
+    def totals(self):
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self.events:
+            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
+        return out
+
+
+def step_split(trainer, batch, label, card):
+    """A warm-up step of ``trainer`` on ``batch`` (cuDNN plans its
+    convolutions for new shapes on the host), one step with its parts timed,
+    then one under the profiler; returns {'parts': {part: ms}, 'step_ms',
+    'host_ms', 'kernel_ms', 'peak_gib', 'loss'} and logs them with the rows
+    each stream ran."""
+    import numpy as np
+    import torch
+
+    model = trainer.model
+    b, s = np.asarray(batch["src_idx"]).shape
+    if trainer.per_token_streams:
+        conv_rows = gru_rows = f"{b * s}"
+    else:
+        rows = model.conv_rows(batch["src_idx"])["res_rows"]
+        conv_rows = f"{len(np.unique(rows))} (bucket {len(rows)})"
+        gru_rows = f"{min(model.pho_uniq_idx.shape[0], b * s)}"
+    device = next(model.parameters()).device
+    trainer.train_step(batch)
+    split, plain_span = StepSplit(), model.span
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    model.span = split.span
+    t = time.perf_counter()
+    try:
+        with split.span("step"):
+            loss = float(trainer.train_step(batch))
+    finally:
+        model.span = plain_span
+    host_ms = 1e3 * (time.perf_counter() - t)
+    parts = split.totals()
+    step_ms = parts.pop("step")
+    kernel_ms = sum(ms for ms, _ in kernel_breakdown(
+        lambda: trainer.train_step(batch), iters=1))
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    log(f"split {label} B={b}: conv rows {conv_rows}, GRU rows {gru_rows} "
+        f"(of {b * s} token slots); step {step_ms:.3f} ms on the device "
+        f"(events), {host_ms:.3f} ms on the host clock, {b / host_ms * 1e3:.1f} "
+        f"sentences/s; profiled step {kernel_ms:.3f} ms of kernels; peak "
+        f"memory {peak:.2f} GiB; loss {loss:.6f} [{card}]")
+    log(f"  split {label} B={b}: " + ", ".join(
+        f"{name} {ms:.3f}" for name, ms in parts.items())
+        + f", rest {step_ms - sum(parts.values()):.3f} ms")
+    return dict(parts=parts, step_ms=step_ms, host_ms=host_ms,
+                kernel_ms=kernel_ms, peak_gib=peak, loss=loss,
+                conv_rows=conv_rows, gru_rows=gru_rows)
+
+
 def train(device, cfg, card):
-    """Phase 8: the Trainer at full width in bf16; returns the launches of
-    the train kernels over the run."""
+    """Phase 8: the Trainer at full width in bf16 on the factorized streams;
+    then the per-stream split of a B=32 and a B=256 step on the factorized
+    and on the per-token path. Returns (the launches of the train kernels
+    over the main run, the trainer)."""
     import math
 
     import torch
@@ -889,12 +1017,14 @@ def train(device, cfg, card):
         f"{time.perf_counter() - t0:.2f} s; {cfg.dtype}, dropout "
         f"{cfg.hidden_dropout_prob}/{cfg.attention_probs_dropout_prob}, "
         f"use_kernels={trainer.use_kernels}, {layers} encoder layers, "
-        f"{sum(p.numel() for p in model.parameters())} parameters")
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
+        f"{model.res_conv_rows} distinct glyph rows and "
+        f"{model.pho_uniq_idx.shape[0]} distinct pinyin rows of "
+        f"{cfg.vocab_size} tokens")
     if not trainer.use_kernels:
         fail("the Trainer did not turn the kernels on for CUDA")
     for fn in tbt.KERNEL_WRAPPERS:
         fn.launches = 0
-    totals = [0] * 4
     for b, batches in ((32, small), (256, large)):
         torch.cuda.reset_peak_memory_stats(device)
         times = []
@@ -923,21 +1053,41 @@ def train(device, cfg, card):
             f"{b * len(times) / sum(times):.1f} sentences/s, peak memory "
             f"{peak / 2 ** 30:.2f} GiB [{card}]")
     # Where a B=256 step's time goes: device time by kernel name over one
-    # profiled step (itself a step of the run, checked like the others).
+    # profiled step (after the profiler's warm-up step; both are steps of
+    # the run, checked like the others).
     before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
     t = time.perf_counter()
     parts = kernel_breakdown(lambda: trainer.train_step(large[-1]), iters=1)
-    dt = time.perf_counter() - t
+    dt = (time.perf_counter() - t) / 2
     if [fn.launches - n for fn, n in zip(tbt.KERNEL_WRAPPERS, before)] != \
-            [layers] * 4:
-        fail("the profiled step missed a train kernel launch")
+            [2 * layers] * 4:
+        fail("the profiled steps missed a train kernel launch")
     busy = sum(ms for ms, _ in parts)
     log(f"train: profiled B=256 step: {busy:.3f} ms of kernels in "
         f"{1e3 * dt:.3f} ms on the host clock (profiler on), "
         f"{len(parts)} kernel names")
     for part_ms, kname in parts[:16]:
         log(f"  profile train step: {part_ms:.4f} ms {kname[:100]}")
-    return {fn.__name__: fn.launches for fn in tbt.KERNEL_WRAPPERS}
+    launches = {fn.__name__: fn.launches for fn in tbt.KERNEL_WRAPPERS}
+
+    # The split of a step by stream, CUDA events around each part, on the
+    # factorized path and on the per-token one, same model and batches.
+    splits = {}
+    for path in ("factorized", "per_token"):
+        trainer.per_token_streams = path == "per_token"
+        for b, batch in ((32, small[-1]), (256, large[-1])):
+            splits[path, b] = step_split(trainer, batch, path, card)
+    trainer.per_token_streams = False
+    for b in (32, 256):
+        fac, tok = splits["factorized", b], splits["per_token", b]
+        log(f"split B={b}, per-token → factorized: " + ", ".join(
+            f"{name} {tok['parts'][name]:.3f} → {fac['parts'][name]:.3f}"
+            for name in tok["parts"])
+            + f"; step {tok['step_ms']:.3f} → {fac['step_ms']:.3f} ms, kernels "
+            f"{tok['kernel_ms']:.3f} → {fac['kernel_ms']:.3f} ms, host "
+            f"{tok['host_ms']:.3f} → {fac['host_ms']:.3f} ms, peak "
+            f"{tok['peak_gib']:.2f} → {fac['peak_gib']:.2f} GiB [{card}]")
+    return launches, trainer
 
 
 def check_train_paths(device, cfg):
@@ -977,6 +1127,191 @@ def check_train_paths(device, cfg):
         fail("the training kernel path disagrees with the plain path")
 
 
+def bn_state(model):
+    return {n: b.clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def check_factorized_paths(device, cfg):
+    """The factorized streams (the Trainer's route: the conv over the
+    batch's distinct glyph rows, the GRU over the distinct pinyin rows)
+    against the per-token streams in float32 at dropout 0 on one B=32 batch,
+    kernels on: the loss sum, every gradient and the BatchNorm running
+    statistics after the step."""
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+
+    cfg = cfg.replace(dtype="float32", hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+    model = seeded_model(cfg, SEED + 4).to(device).train()
+    start = bn_state(model)
+    host = train_batches(cfg, 1, 32, SEED + 5)[0]
+    results = []
+    for per_token in (True, False):
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                if n in start:
+                    b.copy_(start[n])
+        model.zero_grad(set_to_none=True)
+        batch = dict(host)
+        if not per_token:
+            batch.update(model.conv_rows(batch["src_idx"]))
+        out = model(to_device(batch, device), use_kernels=True,
+                    generator=torch.Generator().manual_seed(0),
+                    per_token=per_token)
+        out["loss_sum"].backward()
+        results.append((out["loss_sum"].item(),
+                        {n: p.grad.clone() for n, p in model.named_parameters()},
+                        bn_state(model)))
+    (loss_t, grads_t, bn_t), (loss_f, grads_f, bn_f) = results
+    loss_err = abs(loss_f - loss_t) / abs(loss_t)
+    floor = 1e-4 * max(g.abs().max().item() for g in grads_t.values())
+    worst_name, worst = "", 0.0
+    for n, g in grads_t.items():
+        err = ((grads_f[n] - g).abs().max().item()
+               / max(g.abs().max().item(), floor))
+        if err > worst:
+            worst_name, worst = n, err
+    bn_err = max((bn_f[n] - b).abs().max().item() for n, b in bn_t.items())
+    log(f"factorized vs per-token f32 dropout 0 B=32 ({len(host['src_idx'].ravel())} "
+        f"token slots, {len(np.unique(host['src_idx']))} distinct tokens, "
+        f"{len(model.conv_rows(host['src_idx'])['res_rows'])} conv rows, {model.pho_uniq_idx.shape[0]} GRU rows): loss_sum "
+        f"{loss_f:.6f} / {loss_t:.6f} (relative {loss_err:.2e}, tol "
+        f"{PATH_LOSS_REL}); worst gradient {worst_name} relative {worst:.2e} "
+        f"(tol {PATH_GRAD_REL}) over {len(grads_t)} tensors; BN running "
+        f"statistics max diff {bn_err:.2e} (tol {FACTOR_BN_TOL})")
+    if loss_err > PATH_LOSS_REL or worst > PATH_GRAD_REL or bn_err > FACTOR_BN_TOL:
+        fail("the factorized streams disagree with the per-token streams")
+
+
+def check_stream_determinism(trainer, batch):
+    """Two bf16 forward + backward calls of the trained model on one B=32
+    batch, the Trainer's route and one dropout seed: every gradient, those
+    of the pinyin embeddings, the GRU and the CharResNet among them, must be
+    the same bits."""
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+
+    model = trainer.model.train()
+    start = bn_state(model)
+    batch = dict(batch)
+    batch.update(model.conv_rows(batch["src_idx"]))
+    batch = to_device(batch, next(model.parameters()).device)
+    grads = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        out = model(batch, use_kernels=True,
+                    generator=torch.Generator().manual_seed(7))
+        out["loss_sum"].backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            if n in start:
+                b.copy_(start[n])
+    model.zero_grad(set_to_none=True)
+    differ = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+    streams = [n for n in grads[0]
+               if n.startswith(("pho_embeddings", "pho_gru.", "resnet."))]
+    log(f"determinism bf16 B=32: two backward calls give the same gradient "
+        f"bits for {len(grads[0]) - len(differ)} of {len(grads[0])} tensors, "
+        f"{len([n for n in streams if n not in differ])} of the "
+        f"{len(streams)} stream tensors (pho_embeddings, pho_gru.*, resnet.*)"
+        f"{'; differ: ' + ', '.join(differ[:8]) if differ else ''}")
+    if differ:
+        fail(f"gradients differ between two calls: {differ[:8]}")
+
+
+def evaluate(device, cfg, trainer, card):
+    """Phase 9: eval and scoring. The trained model saved as a port
+    checkpoint and loaded as cli/test loads it; 1024 synthetic dev sentences
+    (20-100 chars) scored by ``cli.common.evaluate_model`` with batch 32 on
+    the (V, H) stream tables and the serving kernels; every file written,
+    every metric finite, 19 launches of each serving kernel per batch; on
+    one batch the kernel path's argmax against the plain path's."""
+    import math
+
+    import torch
+
+    from realise_tpu_torch.cli.common import evaluate_model
+    from realise_tpu_torch.data.dataset import synthetic_dataset
+    from realise_tpu_torch.data.features import Featurizer, to_device
+    from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+    from realise_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                       save_checkpoint)
+    from realise_tpu_torch.training.trainer import Trainer
+
+    n_sent, batch_size = 1024, 32
+    layers = cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers
+    tok = WordPieceTokenizer(vocab_to_dict(build_synthetic_vocab(
+        size=cfg.vocab_size, cjk_chars=REAL_VOCAB_CJK_CHARS)))
+    feat = Featurizer(tok, cfg)
+    data = synthetic_dataset(tok, num_examples=n_sent, min_len=20, max_len=100,
+                             seed=SEED + 7)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ckpt = save_checkpoint(tmp, trainer.step, trainer.model.state_dict(), cfg)
+        with torch.device("meta"):
+            model = Realise(cfg)
+        model.load_state_dict(load_checkpoint(ckpt), assign=True)
+        model.install_pho_vocab_tables(*feat.pho2_tables())
+        ev = Trainer(cfg, model, device=device)
+        sync(device)
+        t1 = time.perf_counter()
+        build_s = []
+        prepare = ev.prepare_eval_tables
+
+        def timed_prepare(featurizer):
+            sync(device)
+            t = time.perf_counter()
+            prepare(featurizer)
+            sync(device)
+            build_s.append(time.perf_counter() - t)
+
+        ev.prepare_eval_tables = timed_prepare
+        bb.attention_block.launches = bb.ffn_block.launches = 0
+        t2 = time.perf_counter()
+        res = evaluate_model(ev, data, feat, tok, tmp, prefix="dev",
+                             batch_size=batch_size)
+        dt = time.perf_counter() - t2
+        launches = {"attention_block": bb.attention_block.launches,
+                    "ffn_block": bb.ffn_block.launches}
+        files = {name: os.path.getsize(os.path.join(tmp, "dev", name))
+                 for name in os.listdir(os.path.join(tmp, "dev"))}
+    steps = -(-n_sent // batch_size)
+    log(f"eval: checkpoint save + load + tables of the featurizer "
+        f"{t1 - t0:.2f} s; {n_sent} sentences in {dt:.3f} s "
+        f"({n_sent / dt:.1f} sentences/s, the (V, H) table build "
+        f"{build_s[0]:.3f} s of it; {n_sent / (dt - build_s[0]):.1f} "
+        f"sentences/s without it), use_kernels={ev.use_kernels}, launches "
+        f"{launches} in {steps} batches [{card}]")
+    log("eval: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(res.items()))
+        + "; files " + ", ".join(f"{k} {v} B" for k, v in sorted(files.items())))
+    if not ev.use_kernels:
+        fail("the eval Trainer did not turn the kernels on for CUDA")
+    missing = [f for f in ("preds.txt", "labels.txt", "gold.lbl.tsv")
+               if not files.get(f)]
+    if missing or not all(math.isfinite(v) for v in res.values()):
+        fail(f"eval: files missing or empty {missing}, metrics {res}")
+    for name, n in launches.items():
+        if n != layers * steps:
+            fail(f"eval: {name} launched {n} times in {steps} batches")
+    host = feat.featurize(data[:batch_size])
+    batch = to_device(feat.device_batch(host), device)
+    with torch.inference_mode():
+        got = ev.model(batch, tables=ev._eval_tables, use_kernels=True)["logits"]
+        want = ev.model(batch, tables=ev._eval_tables, use_kernels=False)["logits"]
+    check_argmax("eval", got, want, batch["masks"].bool(), logits_within=False)
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1011,8 +1346,12 @@ def main() -> int:
     worst_train = check_train_kernels(device, gen)
     rows.update(time_train_kernels(device, gen, card))
     time_backward_gemm(device, gen, card)
-    launches.update(train(device, cfg, card))
+    train_launches, trainer = train(device, cfg, card)
+    launches.update(train_launches)
     check_train_paths(device, cfg)
+    check_factorized_paths(device, cfg)
+    evaluate(device, cfg, trainer, card)
+    check_stream_determinism(trainer, train_batches(cfg, 1, 32, SEED + 6)[0])
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"
     sources = {"attention_block": "realise_tpu/ops/pallas/bert_block.py:67",

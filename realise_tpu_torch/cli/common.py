@@ -1,5 +1,6 @@
 """Shared CLI plumbing of the port: arguments, tokenizer, config, glyphs,
-data (the port's own copy of the training half of ``realise_tpu.cli.common``).
+data and evaluation (the port's own copy of ``realise_tpu.cli.common``
+without its multi-host branches).
 
 Flag names and meanings follow the JAX package's CLIs (which follow the
 reference's src/run.py:282-391). Flags of parts the port does not have yet
@@ -10,6 +11,7 @@ rather than being ignored.
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import pickle
@@ -18,7 +20,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from realise_tpu_torch.config import RealiseConfig, config_for
-from realise_tpu_torch.data.dataset import synthetic_dataset
+from realise_tpu_torch.data.dataset import (
+    batch_iterator,
+    dataset_labels,
+    pad_examples,
+    synthetic_dataset,
+)
+from realise_tpu_torch.eval.metric import Metric
+from realise_tpu_torch.eval.remove_de import remove_de
 from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
 from realise_tpu_torch.text.vocab import (
     REAL_VOCAB_CJK_CHARS,
@@ -36,8 +45,9 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
 # Flags of the JAX CLIs whose parts are not ported yet → (how the parser
 # takes them, the ROADMAP queue A item that ports them).
 UNPORTED: Dict[str, Tuple[dict, str]] = {
-    "--do_eval": (dict(action="store_true"), "4 (eval and scoring)"),
-    "--do_predict": (dict(action="store_true"), "4 (eval and scoring)"),
+    "--remove_unused_ckpts": (dict(action="store_true"),
+                              "2 (checkpoints with optimizer state)"),
+    "--num_save_ckpts": (dict(type=int), "2 (checkpoints with optimizer state)"),
     "--resume": (dict(action="store_true"),
                  "2 (checkpoints with optimizer state)"),
     "--init_ckpt": ({}, "2 (checkpoints with optimizer state)"),
@@ -179,3 +189,72 @@ def zero_padding_loss(feed: Dict, n_real: int) -> Dict:
     lm[n_real:] = 0
     feed["loss_masks"] = lm
     return feed
+
+
+def evaluate_model(trainer, dataset: List[Dict], featurizer, tokenizer,
+                   out_dir: str, prefix: str = "", batch_size: int = 32,
+                   label_path: Optional[str] = None,
+                   should_remove_de: bool = False,
+                   use_fast_path: bool = True) -> Dict[str, float]:
+    """Forward the dataset, decode the argmax predictions and score them
+    with the SIGHAN metric (``evaluate_model`` of the JAX package, the
+    evaluate() path of run.py:239-280). Writes ``preds.txt``,
+    ``labels.txt`` and, without ``label_path``, ``gold.lbl.tsv`` from the
+    dataset's src/tgt under ``out_dir/prefix``.
+
+    ``should_remove_de`` (SIGHAN13) drops 地/得 edits from the predictions
+    and from the gold labels alike, a provided label file through a
+    filtered copy; the reference scores a provided file unfiltered
+    (ADVICE.md:4), so how many edits the filter dropped from it is logged.
+    ``use_fast_path`` builds the (V, H) stream tables of the trainer's
+    current weights first (``Trainer.prepare_eval_tables``)."""
+    work = os.path.join(out_dir, prefix)
+    os.makedirs(work, exist_ok=True)
+    provided = label_path is not None
+    if not provided:
+        label_path = os.path.join(work, "gold.lbl.tsv")
+        with open(label_path, "w", encoding="utf-8") as f:
+            f.write("\n".join(dataset_labels(dataset)))
+    if should_remove_de:
+        filtered = os.path.join(work, "gold.remove_de.lbl.tsv")
+        removed = remove_de(input_path=label_path, output_path=filtered)
+        if provided:
+            logger.info("remove_de dropped %d 地/得 edits from the label file "
+                        "%s (scored as %s)", removed, label_path, filtered)
+        label_path = filtered
+    if use_fast_path:
+        trainer.prepare_eval_tables(featurizer)
+
+    batches, losses, weights = [], [], []
+    # Unpadded iteration, so each batch knows its real example count; the
+    # device step takes the batch padded to batch_size and every field is
+    # sliced back to the real examples.
+    for examples in batch_iterator(dataset, batch_size, pad_final=False):
+        n = len(examples)
+        host = featurizer.featurize(pad_examples(examples, batch_size))
+        out = trainer.eval_step(featurizer.device_batch(
+            zero_padding_loss(host, n)))
+        host["pred_idx"] = out["pred_idx"][:n]
+        for k in ("src_idx", "masks", "loss_masks", "id", "src", "tgt",
+                  "tokens_size", "lengths"):
+            host[k] = host[k][:n]
+        if "loss" in out:
+            # The batch's mean over its real loss tokens, weighted by their
+            # count for the dataset mean.
+            losses.append(out["loss"])
+            weights.append(int(np.asarray(host["loss_masks"]).sum()))
+        batches.append(host)
+
+    results = Metric(tokenizer).metric(
+        batches, pred_txt_path=os.path.join(work, "preds.txt"),
+        pred_lbl_path=os.path.join(work, "labels.txt"), label_path=label_path,
+        should_remove_de=should_remove_de)
+    if losses and sum(weights) > 0:
+        results["avg_loss"] = float(np.average(losses, weights=weights))
+    return results
+
+
+def write_json(path: str, obj) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(obj, f, indent=2, sort_keys=True)

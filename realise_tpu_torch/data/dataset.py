@@ -1,5 +1,5 @@
-"""Batching, synthetic data and host prefetch (the port's own copy of the
-training half of ``realise_tpu.data.dataset``).
+"""Batching, synthetic data, gold label lines and host prefetch (the port's
+own copy of the training and eval half of ``realise_tpu.data.dataset``).
 
 Examples are the reference's per-example dicts ``{id, src, tgt, tokens_size,
 src_idx, tgt_idx, lengths}`` (process_data.py:38-45). A short final batch
@@ -65,6 +65,18 @@ def synthetic_dataset(tokenizer, num_examples: int = 64, min_len: int = 4,
         data.append(make_example(f"{10000 + n}", "".join(src), "".join(tgt),
                                  tokenizer))
     return data
+
+
+def dataset_labels(dataset: Sequence[Dict]) -> List[str]:
+    """Gold label lines (``id, pos, char, ...`` or ``id, 0``) from the
+    examples' src/tgt texts (data_process/build_lbl.py)."""
+    lines = []
+    for ex in dataset:
+        edits = [f"{i}, {b}" for i, (a, b) in
+                 enumerate(zip(ex["src"], ex["tgt"]), start=1) if a != b]
+        lines.append(f"{ex['id']}, " + ", ".join(edits) if edits
+                     else f"{ex['id']}, 0")
+    return lines
 
 
 def threaded_prefetch(iterator, size: int = 2):

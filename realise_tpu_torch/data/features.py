@@ -14,7 +14,8 @@ them. The host batch holds numpy arrays in the reference batch contract
 
 plus the host-only fields (id, src, tgt, tokens_size, lengths) that the text
 reconstruction reads. :func:`to_device` turns the device part into int64
-tensors. Only the Python tokenizer path is ported; the C++ featurizer is not.
+tensors, the conv stream's distinct rows of a call (``res_rows``,
+``res_inverse``, ``Realise.conv_rows``) too. Only the Python tokenizer path is ported; the C++ featurizer is not.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from realise_tpu_torch.text.pinyin import Pinyin2Convertor
 from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
 
 DEVICE_KEYS = ("src_idx", "tgt_idx", "masks", "loss_masks", "pho_idx",
-               "pho_lens")
+               "pho_lens", "res_rows", "res_inverse")
 
 
 def make_example(sid: str, src: str, tgt: str, tokenizer: WordPieceTokenizer) -> Dict:

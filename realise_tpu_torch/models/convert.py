@@ -13,8 +13,9 @@ It takes the nested dicts of numpy arrays that the JAX package's
   ``state['char_images']`` becomes ``char_images_multifonts``.
 
 The deduplicated tables in the state (``res_uniq_*``, ``pho_*``) are derived
-from the glyphs and the vocabulary for the JAX training streams; the port's
-forward does not read them, so they are not converted.
+from the glyphs and the vocabulary; the port derives its own
+(``Realise.install_glyphs``, ``install_pho_vocab_tables``), so they are not
+converted.
 """
 
 from __future__ import annotations

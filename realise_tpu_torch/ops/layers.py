@@ -4,7 +4,9 @@ Numerics follow ``realise_tpu.ops.layers``: parameters are stored in float32
 and cast down to the activation dtype at the matmul, the matmul output is in
 that dtype and the bias is added in it; layer norm runs in float32 whatever
 the activation dtype. Weights keep torch's (out, in) layout. Dropout is the
-counter-hash dropout of ``realise_tpu.ops.layers.dropout``, bit for bit.
+counter-hash dropout of ``realise_tpu.ops.layers.dropout``, bit for bit;
+``table_gather`` is the row gather of the factorized streams with a
+float32, deterministic backward.
 """
 
 from __future__ import annotations
@@ -78,7 +80,52 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def embed(table: torch.Tensor, ids: torch.Tensor,
           dtype: torch.dtype) -> torch.Tensor:
-    return F.embedding(ids, table).to(dtype)
+    """The rows ``ids`` of a float32 embedding table, cast to ``dtype``; the
+    table's gradient is :func:`table_gather`'s."""
+    return table_gather(table, ids).to(dtype)
+
+
+# Tables of at most this many rows (the two token types, the 33 pinyin
+# symbols, the 512 positions) take their gradient as a one-hot matmul. On
+# the card ``embedding_dense_backward`` gave such tables different bits
+# from one call to the next (tools/determinism_probe.py: the token types
+# and pinyin symbols at B=32 and 256, the positions at B=256), and the
+# port's loss trace then differed from run to run; cuBLAS's float32
+# product adds in a fixed order.
+ONEHOT_MAX_ROWS = 512
+
+
+class _TableGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows, ctx.dtype = table.shape[0], table.dtype
+        return table[ids]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        flat = ids.reshape(-1)
+        g = grad.reshape(flat.shape[0], -1).float()
+        if ctx.rows <= ONEHOT_MAX_ROWS:
+            onehot = (flat[:, None] == torch.arange(
+                ctx.rows, device=flat.device)).float()
+            out = torch.matmul(onehot.t(), g)
+        else:
+            out = torch.ops.aten.embedding_dense_backward(
+                g, flat, ctx.rows, -1, False)
+        return out.to(ctx.dtype), None
+
+
+def table_gather(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` whose backward sums the cotangent rows of each table
+    row in float32, in a fixed order, and casts the sum to the table's dtype
+    once: what the JAX package's ``table_gather`` transposes compute (a
+    one-hot matmul or a sorted segment sum, both accumulating in float32).
+    Autograd of ``table[ids]`` would accumulate a bf16 table's gradient in
+    bf16. The embeddings and the factorized streams gather their tables
+    through it; ``ids`` get no gradient."""
+    return _TableGather.apply(table, ids)
 
 
 ACTIVATIONS = {

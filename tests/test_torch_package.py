@@ -28,7 +28,8 @@ def test_port_files_found():
 @pytest.mark.parametrize("module", [
     "ops/kernels/bert_block_train.py", "training/optim.py",
     "training/trainer.py", "data/dataset.py", "text/glyphs.py",
-    "cli/common.py", "cli/train.py"])
+    "cli/common.py", "cli/train.py", "cli/test.py", "eval/metric_core.py",
+    "eval/remove_de.py", "eval/sig_test.py"])
 def test_scan_covers_the_training_modules(module):
     assert ROOT / "realise_tpu_torch" / module in FILES
 

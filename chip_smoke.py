@@ -23,6 +23,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and 32 sentences (length buckets 32, 64, 128); every encoder layer must
    have gone through both kernels, and the kernel path's logits must agree
    with the plain path's;
+5c. the daemon on that checkpoint: ``cli/serve.serve`` on 127.0.0.1:0 in a
+   thread over a Corrector(batch_size=256) with the native featurizer, one
+   daemon with the cross-request batcher and one without
+   (``--no_cross_batching``), each bound before
+   ``warmup(all_buckets=True)``; /healthz; four windows in turns (batcher,
+   none, none, batcher) of 8 client threads each POSTing 60 requests of 32
+   sentences, the length buckets mixed; every response equal to phase 5's
+   serial Corrector's, fewer device steps than requests with the batcher,
+   19 launches of each serving kernel per step; each window's sentences/s
+   and p50/p99 request latency, and each side's spread;
+5b. the native featurizer (built with g++ from the repo's source) against
+   the Python one: equal host batches on phase 5's requests, and the
+   featurize time of a 32-sentence request both ways;
+5d. reference weights: the served model written as a reference
+   ``pytorch_model.bin`` (``module.``-prefixed, ``char_resent.``, the tied
+   classifier weight) and read back by ``models.torch_import``: the kernel
+   path's logits are the served model's bits;
+5e. batch invariance: a request of 8 or 32 rows alone and inside batches
+   of 16 to 256 rows (48 placements over the three buckets): every stage's
+   output for its rows (each encoder layer, the gate fusion's output, the
+   logits, the argmax) the same bits;
 6. the four train kernels (attention and FFN, forward and backward, with the
    dropout hash) against their plain versions on the card at H=768, 12
    heads, I=3072, float32 and bfloat16, (B, S) = (8, 128) and (4, 37) with
@@ -65,7 +86,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    1024 synthetic sentences in batches of 32 with the serving kernels
    (19 launches of each per batch); metrics finite, files written, and the
    kernel path's argmax equal to the plain path's on >= 99% of the clearly
-   decided tokens of one batch.
+   decided tokens of one batch;
+10. resume at full width (bf16, dropout 0.1, B=32, factorized streams,
+   kernels on): 4 steps straight against 2, ``save_checkpoint`` with the
+   trainer's state, a new Trainer loaded from it and 2 more: the loss trace
+   and every model and optimizer tensor are the same bits; the checkpoint's
+   size and its save and load times; then ``cli/train`` on the card, 2
+   steps, then ``--resume`` to 4 with ``--do_eval --remove_unused_ckpts
+   --num_save_ckpts 1``: both checkpoints scored, the best one kept.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -298,30 +326,42 @@ def ffn_library(x, p, eps=1e-12, rate=0.0):
                         p["ln_bias"].to(x.dtype), eps)
 
 
-def kernel_breakdown(fn, iters=5):
+def kernel_breakdown(fn, label, iters=5, attempts=3):
     """[(ms per call, CUDA kernel name)] of fn from torch.profiler, largest
-    first; empty if the profiler recorded no device time. One more call of
-    fn goes first, in the schedule's warm-up step: a trace loses or clips
-    kernels at its start (a B=256 backward profile once lacked the first
-    product of all its calls, and 3-call profiles read the first call's
-    first launch as nothing, PERF.md §6)."""
+    first; empty if the profiler recorded no device time in ``attempts``
+    traces. One more call of fn goes first, in the schedule's warm-up step:
+    a trace loses or clips kernels at its start (a B=256 backward profile
+    once lacked the first product of all its calls, and 3-call profiles read
+    the first call's first launch as nothing, PERF.md §6). The queue is
+    drained before each trace starts. A trace that holds no device time at
+    all (one B=256 FFN train forward profile once, cause not known, PERF.md
+    §7) is logged with ``label`` (phase and shape) and taken again; a trace
+    that holds some is returned as it is."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=iters,
-                                   repeat=1)) as prof:
-        for i in range(iters + 1):
-            fn()
-            if i == iters:
-                torch.cuda.synchronize()
-            prof.step()
-    rows = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "device_time_total", 0) or getattr(evt, "cuda_time_total", 0)
-        if us > 0:
-            rows.append((us / iters / 1e3, evt.key))
-    return sorted(rows, reverse=True)
+    for attempt in range(1, attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=iters,
+                                       repeat=1)) as prof:
+            for i in range(iters + 1):
+                fn()
+                if i == iters:
+                    torch.cuda.synchronize()
+                prof.step()
+        rows = []
+        for evt in prof.key_averages():
+            us = (getattr(evt, "device_time_total", 0)
+                  or getattr(evt, "cuda_time_total", 0))
+            if us > 0:
+                rows.append((us / iters / 1e3, evt.key))
+        if rows:
+            return sorted(rows, reverse=True)
+        log(f"kernel_breakdown: EMPTY TRACE of {label}, {iters} calls: no "
+            f"device time (attempt {attempt} of {attempts}, "
+            f"{len(prof.key_averages())} host events)")
+    return []
 
 
 def bound(name, b, s):
@@ -374,7 +414,8 @@ def time_kernels(device, gen, card):
                 f"{bound_ms / ms:.1%} of it), "
                 f"max|kernel-plain| {err:.3e} [{card}]")
             if b == 256:
-                parts = kernel_breakdown(kern)
+                parts = kernel_breakdown(
+                    kern, f"serving kernel {name} B={b} S=128")
                 for part_ms, kname in parts[:6]:
                     log(f"  profile {name} B={b}: {part_ms:.4f} ms {kname[:90]}")
                 if not parts:
@@ -395,10 +436,11 @@ def sentences(vocab, rng, n, lo, hi):
             for _ in range(n)]
 
 
-def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
-                                                       (32, 90, 120))):
-    """Phase 5: save a seeded full-width checkpoint, serve requests through
-    the Corrector, check launches and outputs. Returns the launch counts."""
+def serve(device, cfg, gen, ckpt_root, batch_size=32,
+          requests=((1, 16, 28), (8, 40, 60), (32, 90, 120))):
+    """Phase 5: save a seeded full-width checkpoint under ``ckpt_root``,
+    serve requests through the Corrector, check launches and outputs.
+    Returns the launch counts, the Corrector and the requests' sentences."""
     import numpy as np
     import torch
 
@@ -418,14 +460,13 @@ def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
     model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
                                      generator=gen) < 0.5).float())
     layers = (cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers)
-    with tempfile.TemporaryDirectory() as tmp:
-        save_checkpoint(tmp, 0, model.state_dict(), cfg)
-        del model
-        t1 = time.perf_counter()
-        corrector = Corrector(tmp, synthetic_vocab=True, batch_size=batch_size,
-                              device=device)
-        sync(device)
-        t2 = time.perf_counter()
+    save_checkpoint(ckpt_root, 0, model.state_dict(), cfg)
+    del model
+    t1 = time.perf_counter()
+    corrector = Corrector(ckpt_root, synthetic_vocab=True, batch_size=batch_size,
+                          device=device)
+    sync(device)
+    t2 = time.perf_counter()
     log(f"serve: init+save {t1 - t0:.2f} s, Corrector load+tables "
         f"{t2 - t1:.2f} s, use_kernels={corrector.use_kernels}, "
         f"{layers} encoder layers per step")
@@ -472,7 +513,8 @@ def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
         for i, src in enumerate(sents):
             corrector._reconstruct(src, host, i)
         t3 = time.perf_counter()
-        parts = kernel_breakdown(lambda: corrector.logits(arrays).argmax(-1))
+        parts = kernel_breakdown(lambda: corrector.logits(arrays).argmax(-1),
+                                 f"serve step B={len(sents)} S={bucket}")
         busy = sum(ms for ms, _ in parts)
         log(f"serve: request of {len(sents)} sentences (bucket {bucket}) split: "
             f"featurize {1e3 * (t1 - t0):.3f} ms, device step "
@@ -493,7 +535,7 @@ def serve(device, cfg, gen, batch_size=32, requests=((1, 16, 28), (8, 40, 60),
     if not bool(torch.isfinite(got).all()):
         fail("non-finite logits")
     check_argmax("serve", got, want, batch["masks"].bool())
-    return launches
+    return launches, corrector, batches
 
 
 def check_argmax(phase, got, want, valid, logits_within=True):
@@ -850,7 +892,8 @@ def time_train_kernels(device, gen, card):
             if name in RECOMPUTE_EPI:
                 check_deterministic(name, b, kern)
             if b == 256:
-                parts = kernel_breakdown(kern, iters=3)
+                parts = kernel_breakdown(kern, f"train kernel {name} B={b} S=128",
+                                         iters=3)
                 for part_ms, kname in parts[:8]:
                     log(f"  profile {name} B={b}: {part_ms:.4f} ms {kname[:90]}")
                 if name in RECOMPUTE_EPI:
@@ -866,6 +909,342 @@ def time_train_kernels(device, gen, card):
         check_replay_bits(b, p_ffn, x)
         check_attention_replay_bits(b, p_att, x, dy, bias)
     return rows
+
+
+# ------------------------------------------------------- featurizer, daemon
+def check_featurizer(native_corrector, requests, card):
+    """Phase 5b: the native and the Python ``featurize_raw`` give the same
+    host batch for every request of phase 5; a 32-sentence request's
+    featurize time both ways (median of 20)."""
+    import numpy as np
+
+    feat, native = native_corrector.featurizer, native_corrector.native
+    for sents in requests:
+        bucket = native_corrector._bucket_for(sents)
+        a = feat.featurize_raw(sents, native=native, seq_len=bucket)
+        b = feat.featurize_raw(sents, seq_len=bucket)
+        if set(a) != set(b):
+            fail(f"featurizer: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            same = (np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray)
+                    else a[k] == b[k])
+            if not same:
+                fail(f"featurizer: native and Python {k} differ for a request "
+                     f"of {len(sents)} sentences")
+    sents = requests[-1]
+    bucket = native_corrector._bucket_for(sents)
+    times = {}
+    for label, nat in (("native", native), ("python", None)):
+        runs = []
+        for _ in range(20):
+            t = time.perf_counter()
+            feat.featurize_raw(sents, native=nat, seq_len=bucket)
+            runs.append(1e3 * (time.perf_counter() - t))
+        times[label] = statistics.median(runs)
+    log(f"featurizer: native == Python on {len(requests)} requests; featurize "
+        f"of a {len(sents)}-sentence request (bucket {bucket}): native "
+        f"{times['native']:.3f} ms, Python {times['python']:.3f} ms, median "
+        f"of 20 on the host [{card}]")
+    return times
+
+
+def load_daemon(server, requests, clients):
+    """``clients`` threads, each POSTing its list of requests in turn to
+    ``server``; returns ([(request, response)], latencies in ms, wall s)."""
+    import http.client
+    import threading
+
+    port = server.server_address[1]
+    out, lat, errors = [], [], []
+    lock = threading.Lock()
+
+    def client(mine):
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+            for sents in mine:
+                t = time.perf_counter()
+                conn.request("POST", "/correct",
+                             body=json.dumps({"sentences": sents}))
+                resp = conn.getresponse()
+                body = resp.read()
+                dt = 1e3 * (time.perf_counter() - t)
+                if resp.status != 200:
+                    raise RuntimeError(f"HTTP {resp.status}: {body[:200]!r}")
+                with lock:
+                    out.append((sents, json.loads(body)))
+                    lat.append(dt)
+            conn.close()
+        except Exception as e:  # reported by the caller
+            with lock:
+                errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(requests[c::clients],))
+               for c in range(clients)]
+    t = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t
+    if errors or any(th.is_alive() for th in threads):
+        fail(f"daemon: clients failed: {errors[:3]}")
+    return out, lat, wall
+
+
+def daemon(device, cfg, ckpt_root, serial, card, clients=8, distinct=96,
+           rounds=60, batch_size=256):
+    """Phase 5c: two daemons, ``cli/serve.serve`` on 127.0.0.1:0 each, over
+    a Corrector with the native featurizer, one with the cross-request
+    batcher and one without (``--no_cross_batching``), both warmed on every
+    bucket; /healthz. Then four windows in turns, batcher, none, none,
+    batcher: ``clients`` threads each POST ``rounds`` requests of 32
+    sentences (``distinct`` requests cycled, the buckets mixed). Every
+    response must equal the serial Corrector's output, the batcher must take
+    fewer device steps than requests, and each serving kernel must launch 19
+    times per step. Each window's sentences/s and p50/p99 request latency
+    are logged, then each side's spread. Returns the batching Corrector (for
+    phase 5b) and the windows' readings."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from realise_tpu_torch.cli.serve import serve as make_server
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.serving import Corrector
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab)
+
+    layers = cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers
+    vocab = build_synthetic_vocab(size=cfg.vocab_size,
+                                  cjk_chars=REAL_VOCAB_CJK_CHARS)
+    rng = np.random.default_rng(SEED + 3)
+    spans = ((16, 28), (40, 60), (90, 120))  # buckets 32, 64, 128
+    requests = [sentences(vocab, rng, 32,
+                          *spans[(i % clients + i // clients) % 3])
+                for i in range(distinct)]
+    want = {tuple(sents): serial.correct(sents) for sents in requests}
+    load = [requests[i % distinct] for i in range(clients * rounds)]
+    n_sent = sum(len(r) for r in load)
+    daemons, windows = {}, []
+    try:
+        for batching in (True, False):
+            label = "cross-batching" if batching else "no_cross_batching"
+            t0 = time.perf_counter()
+            corrector = Corrector(ckpt_root, synthetic_vocab=True,
+                                  batch_size=batch_size, device=device,
+                                  native_featurizer=True,
+                                  cross_request_batching=batching)
+            server = make_server(corrector, "127.0.0.1", 0)  # before warmup
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            daemons[label] = (corrector, server, thread)
+            t1 = time.perf_counter()
+            corrector.warmup(all_buckets=True)
+            sync(device)
+            t2 = time.perf_counter()
+            conn = http.client.HTTPConnection("127.0.0.1",
+                                              server.server_address[1],
+                                              timeout=60)
+            conn.request("GET", "/healthz")
+            resp = conn.getresponse()
+            health = json.loads(resp.read())
+            conn.close()
+            if resp.status != 200 or health.get("status") != "ok":
+                fail(f"daemon: /healthz answered {resp.status} {health}")
+            log(f"daemon ({label}): Corrector load + tables {t1 - t0:.2f} s, "
+                f"warmup of {len(corrector._buckets)} x "
+                f"{len(corrector._batch_buckets)} buckets {t2 - t1:.2f} s; "
+                f"/healthz {health}")
+        for label in ("cross-batching", "no_cross_batching",
+                      "no_cross_batching", "cross-batching"):
+            corrector, server, _ = daemons[label]
+            bb.attention_block.launches = bb.ffn_block.launches = 0
+            steps0 = corrector.steps
+            answered, lat, wall = load_daemon(server, load, clients)
+            steps = corrector.steps - steps0
+            launches = {"attention_block": bb.attention_block.launches,
+                        "ffn_block": bb.ffn_block.launches}
+            p50, p99 = np.percentile(lat, [50, 99])
+            windows.append(dict(label=label, sent_s=n_sent / wall, p50=p50,
+                                p99=p99, steps=steps, wall=wall))
+            log(f"daemon ({label}) window {len(windows)}: {len(load)} "
+                f"requests of 32 sentences from {clients} clients in "
+                f"{wall:.3f} s: {n_sent / wall:.1f} sentences/s, request "
+                f"latency p50 {p50:.3f} ms, p99 {p99:.3f} ms; {steps} device "
+                f"steps, launches {launches} [{card}]")
+            for name, n in launches.items():
+                if n != layers * steps:
+                    fail(f"daemon: {name} launched {n} times in {steps} "
+                         f"steps, expected {layers} per step")
+            if label == "cross-batching" and steps >= len(load):
+                fail(f"daemon: {steps} device steps for {len(load)} "
+                     f"requests: no request shared a step")
+            wrong = 0
+            for sents, resp in answered:
+                got = [r["corrected"] for r in resp["results"]]
+                ref = want[tuple(sents)]
+                wrong += sum(a != b for a, b in zip(got, ref)) + abs(
+                    len(got) - len(ref))
+            if wrong:
+                fail(f"daemon ({label}): {wrong} of {n_sent} sentences "
+                     f"differ from the serial Corrector's")
+    finally:
+        for corrector, server, thread in daemons.values():
+            server.shutdown()
+            server.server_close()
+            thread.join(60)
+            corrector.close()
+    for label in ("cross-batching", "no_cross_batching"):
+        mine = [w for w in windows if w["label"] == label]
+        log(f"daemon ({label}) over its {len(mine)} windows: sentences/s "
+            + " / ".join(f"{w['sent_s']:.1f}" for w in mine) + ", p50 ms "
+            + " / ".join(f"{w['p50']:.3f}" for w in mine) + ", p99 ms "
+            + " / ".join(f"{w['p99']:.3f}" for w in mine) + ", steps "
+            + " / ".join(str(w["steps"]) for w in mine) + "; all "
+            f"{n_sent} responses of each window equal the serial "
+            f"Corrector's [{card}]")
+    ratios = [windows[0]["sent_s"] / windows[1]["sent_s"],
+              windows[3]["sent_s"] / windows[2]["sent_s"]]
+    log("daemon: sentences/s with the batcher over without, adjacent "
+        "windows: " + " / ".join(f"{r:.3f}" for r in ratios))
+    return daemons["cross-batching"][0], windows
+
+
+def check_reference_weights(device, cfg, corrector, ckpt_root, requests):
+    """Phase 5d: the served model's weights written as a reference
+    ``pytorch_model.bin`` (``module.``-prefixed, ``resnet.`` renamed
+    ``char_resent.``, the tied classifier weight beside them), read back by
+    ``models.torch_import.import_checkpoint_dir``: the kernel path's logits
+    are the served model's bits."""
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+    from realise_tpu_torch.models.realise import (Realise,
+                                                  precompute_inference_tables)
+    from realise_tpu_torch.models.torch_import import import_checkpoint_dir
+
+    sd = {}
+    for k, v in corrector.model.state_dict().items():
+        if k.startswith("resnet."):
+            k = "char_resent." + k[len("resnet."):]
+        sd["module." + k] = v.detach().cpu()
+    sd["module.classifier.weight"] = sd["module.bert.embeddings.word_embeddings.weight"]
+    bin_dir = os.path.join(ckpt_root, "reference")
+    os.makedirs(bin_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    torch.save(sd, os.path.join(bin_dir, "pytorch_model.bin"))
+    t1 = time.perf_counter()
+    with torch.device("meta"):
+        model = Realise(cfg)
+    model.load_state_dict(import_checkpoint_dir(bin_dir, cfg), assign=True)
+    model = model.to(device).eval()
+    tables = precompute_inference_tables(
+        model, *corrector.featurizer.pho2_tables())
+    sync(device)
+    t2 = time.perf_counter()
+    size = os.path.getsize(os.path.join(bin_dir, "pytorch_model.bin"))
+    for sents in requests:
+        host = corrector.featurizer.featurize_raw(
+            sents, seq_len=corrector._bucket_for(sents))
+        arrays = corrector.featurizer.device_batch(host)
+        want = corrector.logits(arrays)
+        with torch.inference_mode():
+            got = model(to_device(arrays, device), tables=tables,
+                        use_kernels=corrector.use_kernels)["logits"]
+        if not torch.equal(got, want):
+            fail(f"reference weights: logits differ from the served model's "
+                 f"by up to {(got.float() - want.float()).abs().max():.3e}")
+    log(f"reference weights: pytorch_model.bin of {size / 2 ** 20:.1f} MiB "
+        f"written in {t1 - t0:.2f} s, imported + tables in {t2 - t1:.2f} s; "
+        f"kernel-path logits equal to the served model's bits on "
+        f"{len(requests)} requests")
+    del model, tables
+
+
+def check_batch_invariance(device, cfg, corrector, card):
+    """Phase 5e: a served row's bits do not depend on the rows beside it,
+    which the batcher's answers rest on. For each length bucket a request of
+    8 or 32 rows runs alone and inside batches of 16 to 256 rows, at the
+    batch's start and at its end (48 placements), and every stage's output
+    for its rows (each encoder layer, the gate fusion, the output block,
+    the logits, the argmax) must be the same bits."""
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab)
+
+    model = corrector.model
+    vocab = build_synthetic_vocab(size=cfg.vocab_size,
+                                  cjk_chars=REAL_VOCAB_CJK_CHARS)
+    rng = np.random.default_rng(SEED + 5)
+    batches = {}
+    for (lo, hi), bucket in (((16, 28), 32), ((40, 60), 64), ((90, 120), 128)):
+        host = corrector.featurizer.featurize_raw(
+            sentences(vocab, rng, 256, lo, hi), seq_len=bucket)
+        batches[bucket] = corrector.featurizer.device_batch(host)
+    captured = []
+    hooks = [layer.register_forward_hook(
+        lambda mod, args, out, name=f"{stack}.{i}": captured.append((name, out)))
+        for stack in ("bert", "pho_model", "output_block")
+        for i, layer in enumerate(getattr(model, stack).encoder.layer)]
+    hooks.append(model.output_block.register_forward_pre_hook(
+        lambda mod, args, kw: captured.append(("gate fusion",
+                                                kw["inputs_embeds"])),
+        with_kwargs=True))
+
+    def run(arrays):
+        captured.clear()
+        with torch.inference_mode():
+            logits = model(to_device(arrays, device), tables=corrector.tables,
+                           use_kernels=True)["logits"]
+        torch.cuda.synchronize()
+        return captured[:] + [("logits", logits), ("argmax", logits.argmax(-1))]
+
+    def placements():
+        """(placements, the ones that differ, argmax tokens flipped)."""
+        cases = differ = flips = 0
+        for bucket, full in batches.items():
+            for n in (8, 32):
+                ref = run({k: v[:n] for k, v in full.items()})
+                for rows in (16, 32, 64, 128, 256):
+                    for at in sorted({0, rows - n}) if rows > n else ():
+                        idx = np.r_[np.arange(n, n + at), np.arange(n),
+                                    np.arange(n + at, rows)]
+                        got = run({k: v[idx] for k, v in full.items()})
+                        pos = torch.arange(at, at + n, device=device)
+                        stages = []
+                        for (name, a), (_, b) in zip(ref, got):
+                            b = b[pos]
+                            if torch.equal(a, b):
+                                continue
+                            if name == "argmax":
+                                flips += int((a != b).sum())
+                                stages.append(f"argmax {int((a != b).sum())} "
+                                              f"tokens")
+                            else:
+                                stages.append(f"{name} "
+                                              f"{float((a.float() - b.float()).abs().max()):.4g}")
+                        cases += 1
+                        differ += bool(stages)
+                        if stages:
+                            log(f"  bucket {bucket}, {n} rows in {rows} at row "
+                                f"{at}: " + ", ".join(stages))
+        return cases, differ, flips
+
+    try:
+        cases, differ, flips = placements()
+    finally:
+        for h in hooks:
+            h.remove()
+    log(f"batch invariance: {differ} of {cases} placements differ, {flips} "
+        f"argmax tokens flipped [{card}]")
+    if differ:
+        fail(f"batch invariance: {differ} of {cases} placements of a request "
+             f"in a larger batch change its bits")
 
 
 # ---------------------------------------------------------------- training
@@ -977,7 +1356,8 @@ def step_split(trainer, batch, label, card):
     parts = split.totals()
     step_ms = parts.pop("step")
     kernel_ms = sum(ms for ms, _ in kernel_breakdown(
-        lambda: trainer.train_step(batch), iters=1))
+        lambda: trainer.train_step(batch), f"split {label} step B={b} S={s}",
+        iters=1))
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     log(f"split {label} B={b}: conv rows {conv_rows}, GRU rows {gru_rows} "
         f"(of {b * s} token slots); step {step_ms:.3f} ms on the device "
@@ -1057,7 +1437,8 @@ def train(device, cfg, card):
     # the run, checked like the others).
     before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
     t = time.perf_counter()
-    parts = kernel_breakdown(lambda: trainer.train_step(large[-1]), iters=1)
+    parts = kernel_breakdown(lambda: trainer.train_step(large[-1]),
+                             "train step B=256", iters=1)
     dt = (time.perf_counter() - t) / 2
     if [fn.launches - n for fn, n in zip(tbt.KERNEL_WRAPPERS, before)] != \
             [2 * layers] * 4:
@@ -1312,6 +1693,111 @@ def evaluate(device, cfg, trainer, card):
     return launches
 
 
+def resume(device, cfg, card, steps=4, batch_size=32):
+    """Phase 10: resumed training at full width (bf16, dropout 0.1, B=32,
+    factorized streams, kernels on). ``steps`` steps straight against half
+    of them, ``save_checkpoint`` with the trainer's state, a new Trainer
+    (other initial weights, other generator seed) loaded from it and the
+    other half: the loss trace and every parameter, buffer and optimizer
+    tensor are the same bits. Then ``cli/train`` on the card: 2 steps, then
+    ``--resume`` to 4 with ``--do_eval --remove_unused_ckpts
+    --num_save_ckpts 1``."""
+    import copy
+
+    import torch
+
+    from realise_tpu_torch.cli import train as cli_train
+    from realise_tpu_torch.training.checkpoint import (list_checkpoints,
+                                                       load_checkpoint,
+                                                       load_trainer_state,
+                                                       save_checkpoint)
+    from realise_tpu_torch.training.trainer import Trainer
+
+    base = seeded_model(cfg, SEED + 20)
+    batches = train_batches(cfg, steps, batch_size, SEED + 21)
+    kw = dict(learning_rate=5e-5, warmup_steps=2, total_steps=100,
+              weight_decay=0.01, max_grad_norm=1.0, device=device, seed=SEED)
+    straight = Trainer(cfg, copy.deepcopy(base), **kw)
+    want = [float(straight.train_step(b)) for b in batches]
+    want_state = straight.model.state_dict()
+    want_opt = straight.optimizer.state_dict()
+
+    half = steps // 2
+    first = Trainer(cfg, copy.deepcopy(base), **kw)
+    got = [float(first.train_step(b)) for b in batches[:half]]
+    with tempfile.TemporaryDirectory() as tmp:
+        sync(device)
+        t0 = time.perf_counter()
+        path = save_checkpoint(tmp, first.step, first.model.state_dict(), cfg,
+                               trainer_state=first.state_dict(),
+                               training_args={"phase": "resume"})
+        t1 = time.perf_counter()
+        sizes = {f: os.path.getsize(os.path.join(path, f))
+                 for f in sorted(os.listdir(path))}
+        del first
+        other = copy.deepcopy(base)
+        with torch.no_grad():
+            for p in other.parameters():
+                p.add_(0.01)
+        second = Trainer(cfg, other, **dict(kw, seed=SEED + 1))
+        sync(device)
+        t2 = time.perf_counter()
+        state = load_trainer_state(path)
+        second.model.load_state_dict(load_checkpoint(path))
+        second.load_state_dict(state)
+        sync(device)
+        t3 = time.perf_counter()
+    got += [float(second.train_step(b)) for b in batches[half:]]
+    log(f"resume: checkpoint at step {half}: " + ", ".join(
+        f"{f} {n / 2 ** 20:.1f} MiB" for f, n in sizes.items())
+        + f"; save {t1 - t0:.3f} s, load into a new Trainer {t3 - t2:.3f} s "
+        f"[{card}]")
+    log(f"resume: losses straight {want}, resumed {got}")
+    if got != want:
+        fail("resume: the resumed loss trace differs from the straight run's")
+    differ = [k for k, v in second.model.state_dict().items()
+              if not torch.equal(v, want_state[k])]
+    opt = second.optimizer.state_dict()
+    differ += [f"optimizer {i}.{k}" for i, st in want_opt["state"].items()
+               for k, v in st.items()
+               if not torch.equal(opt["state"][i][k], v)]
+    if differ or second.step != steps:
+        fail(f"resume: step {second.step}; tensors differ from the straight "
+             f"run's: {differ[:8]}")
+    log(f"resume: {steps} steps, loss trace and all {len(want_state)} model "
+        f"tensors and {sum(len(s) for s in want_opt['state'].values())} "
+        f"optimizer tensors equal the straight run's bits")
+    del straight, second, base
+
+    # cli/train on the card, the published widths, a small batch.
+    with tempfile.TemporaryDirectory() as out:
+        argv = ["--synthetic", "--dtype", "bfloat16", "--output_dir", out,
+                "--per_device_train_batch_size", "8", "--save_steps", "2",
+                "--eval_batch_size", "32", "--seed", str(SEED)]
+        t0 = time.perf_counter()
+        if cli_train.main(argv + ["--max_steps", "2"]) != 0:
+            fail("resume: cli/train --max_steps 2 failed")
+        t1 = time.perf_counter()
+        if cli_train.main(argv + ["--max_steps", "4", "--resume", "--do_train",
+                                  "--do_eval", "--remove_unused_ckpts",
+                                  "--num_save_ckpts", "1"]) != 0:
+            fail("resume: cli/train --resume failed")
+        t2 = time.perf_counter()
+        with open(os.path.join(out, "dev_results.json")) as f:
+            scores = json.load(f)
+        kept = list_checkpoints(out)
+        best = max(scores, key=lambda s: scores[s]["sent-detect-f1"])
+        kept_step = (load_trainer_state(kept[0][1])["step"]
+                     if len(kept) == 1 else None)
+    log(f"resume: cli/train 2 steps {t1 - t0:.2f} s, --resume to 4 with "
+        f"--do_eval --remove_unused_ckpts {t2 - t1:.2f} s; dev scores of "
+        f"checkpoints {sorted(scores, key=int)}, kept {[s for s, _ in kept]}")
+    if sorted(scores, key=int) != ["2", "4"]:
+        fail(f"resume: dev scores of {sorted(scores)}, expected 2 and 4")
+    if [str(s) for s, _ in kept] != [best] or kept_step != int(best):
+        fail(f"resume: kept {kept}, expected only the best, {best}")
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1323,6 +1809,7 @@ def main() -> int:
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.ops.kernels._build import build
 
+    started = time.perf_counter()
     device = resolve_device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1332,7 +1819,9 @@ def main() -> int:
         f"nvidia-smi: {card}")
 
     t = time.perf_counter()
-    logs = build(["bert_block", "bert_block_train"])  # one nvcc each, together
+    # One compiler each, together: nvcc for the kernels, g++ for the
+    # featurizer.
+    logs = build(["bert_block", "bert_block_train", "realise_featurizer"])
     log(f"build: {time.perf_counter() - t:.2f} s")
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -1342,7 +1831,14 @@ def main() -> int:
     worst = check_kernels(device, gen)
     rows = time_kernels(device, gen, card)
     cfg = config_for("bert-pho2-res-arch3", vocab_size=21128, dtype="bfloat16")
-    launches = serve(device, cfg, gen)
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        launches, corrector, requests = serve(device, cfg, gen, ckpt_root)
+        native, _ = daemon(device, cfg, ckpt_root, corrector, card)
+        check_featurizer(native, requests, card)
+        check_reference_weights(device, cfg, corrector, ckpt_root, requests)
+        check_batch_invariance(device, cfg, corrector, card)
+        del corrector, native
+    torch.cuda.empty_cache()
     worst_train = check_train_kernels(device, gen)
     rows.update(time_train_kernels(device, gen, card))
     time_backward_gemm(device, gen, card)
@@ -1352,6 +1848,9 @@ def main() -> int:
     check_factorized_paths(device, cfg)
     evaluate(device, cfg, trainer, card)
     check_stream_determinism(trainer, train_batches(cfg, 1, 32, SEED + 6)[0])
+    del trainer
+    torch.cuda.empty_cache()
+    resume(device, cfg, card)
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"
     sources = {"attention_block": "realise_tpu/ops/pallas/bert_block.py:67",
@@ -1370,6 +1869,7 @@ def main() -> int:
         f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst.items())))
     log("worst relative |kernel-plain| of the train kernels: " + ", ".join(
         f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst_train.items())))
+    log(f"all phases passed in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,14 +43,10 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
                       max_position_embeddings=64)
 
 # Flags of the JAX CLIs whose parts are not ported yet → (how the parser
-# takes them, the ROADMAP queue A item that ports them).
+# takes them, the ROADMAP queue A item that ports them): the remaining
+# presets and pretraining stages (7), multi-GPU data parallelism (6), and
+# length buckets and step traces in training (9).
 UNPORTED: Dict[str, Tuple[dict, str]] = {
-    "--remove_unused_ckpts": (dict(action="store_true"),
-                              "2 (checkpoints with optimizer state)"),
-    "--num_save_ckpts": (dict(type=int), "2 (checkpoints with optimizer state)"),
-    "--resume": (dict(action="store_true"),
-                 "2 (checkpoints with optimizer state)"),
-    "--init_ckpt": ({}, "2 (checkpoints with optimizer state)"),
     "--pho_ckpt": ({}, "7 (presets and pretraining stages)"),
     "--res_ckpt": ({}, "7 (presets and pretraining stages)"),
     "--image_model_type": (dict(type=int), "7 (presets and pretraining stages)"),
@@ -61,6 +57,8 @@ UNPORTED: Dict[str, Tuple[dict, str]] = {
     "--distributed": (dict(action="store_true"), "6 (multi-GPU data parallel)"),
     "--length_buckets": ({}, "9 (length buckets and step traces in training)"),
     "--trace_dir": ({}, "9 (length buckets and step traces in training)"),
+    "--trace_steps": (dict(type=int),
+                      "9 (length buckets and step traces in training)"),
 }
 
 

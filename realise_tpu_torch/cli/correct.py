@@ -9,7 +9,7 @@ Example:
     python -m realise_tpu_torch.cli.correct --ckpt_dir /tmp/out --synthetic \
         --input sents.txt --show_edits
     python -m realise_tpu_torch.cli.correct --ckpt_dir /tmp/out --synthetic \
-        --device cpu
+        --device cpu --native_featurizer
 """
 
 from __future__ import annotations
@@ -29,6 +29,9 @@ def build_parser():
                    help="append detected (pos, wrong→correct) edits")
     p.add_argument("--no_fast_path", action="store_true",
                    help="skip the table precompute (per-token GRU and conv)")
+    p.add_argument("--native_featurizer", action="store_true",
+                   help="tokenize + assemble batches with the C++ featurizer "
+                        "(realise_tpu_torch/csrc/featurizer.cpp)")
     p.add_argument("--synthetic", action="store_true",
                    help="synthetic vocab of the checkpoint's size")
     p.add_argument("--device", default=None,
@@ -51,7 +54,7 @@ def main(argv=None):
         args.ckpt_dir, vocab_path=args.vocab_path, batch_size=args.batch_size,
         use_kernels=False if args.no_kernels else None,
         fast_path=not args.no_fast_path, synthetic_vocab=args.synthetic,
-        device=args.device)
+        device=args.device, native_featurizer=args.native_featurizer)
 
     if args.input is None and sys.stdin.isatty():
         # Interactive: correct per line as typed.

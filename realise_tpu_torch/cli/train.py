@@ -8,8 +8,15 @@ end (``saved_ckpt-{step}/``, served by ``realise_tpu_torch.serving.Corrector``
 and ``cli/correct``, scored by ``cli/test``). ``--do_eval`` scores every
 saved checkpoint on the dev set (``dev_results.json``); ``--do_predict``
 scores the test set with the best of them by ``--order_metric`` (without
-``--do_eval``, the latest). Runs on CUDA with the fused kernels unless told
-otherwise.
+``--do_eval``, the latest); with ``--remove_unused_ckpts`` only the
+``--num_save_ckpts`` best are kept. Each checkpoint also holds the
+optimizer's state, the step and the dropout generator's state
+(``trainer.pt``) and the run's arguments (``training_args.json``), so
+``--resume`` continues the run from the newest checkpoint in
+``--output_dir``: step k trains on batch k and draws step k's dropout masks,
+as the uninterrupted run would. ``--init_ckpt`` starts from a checkpoint's
+weights with a fresh optimizer at step 0. Runs on CUDA with the fused
+kernels unless told otherwise.
 
 Example (smoke, no corpus assets):
     python -m realise_tpu_torch.cli.train --synthetic --tiny --max_steps 2 \
@@ -54,6 +61,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--do_predict", action="store_true",
                    help="score the test set with the best (or latest) "
                         "checkpoint")
+    p.add_argument("--init_ckpt", default=None,
+                   help="checkpoint dir to initialize from (e.g. merged "
+                        "pretrain, the merge.py equivalent)")
     p.add_argument("--per_device_train_batch_size", type=int, default=16)
     p.add_argument("--eval_batch_size", type=int, default=32)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
@@ -70,8 +80,15 @@ def build_parser() -> argparse.ArgumentParser:
     # Higher is better by default (an F1); --no-metric_reverse for a loss.
     p.add_argument("--metric_reverse", action=argparse.BooleanOptionalAction,
                    default=True)
+    p.add_argument("--num_save_ckpts", type=int, default=5)
+    p.add_argument("--remove_unused_ckpts", action="store_true")
     p.add_argument("--no_prefetch", action="store_true",
                    help="featurize on the training thread")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest checkpoint in output_dir, "
+                        "restoring params, BN stats, Adam moments, the step "
+                        "counter and the dropout generator (the reference "
+                        "loses optimizer state on restart)")
     return p
 
 
@@ -90,6 +107,8 @@ def main(argv=None) -> int:
     from realise_tpu_torch.training.checkpoint import (
         list_checkpoints,
         load_checkpoint,
+        load_trainer_state,
+        retain_top_k,
         save_checkpoint,
     )
     from realise_tpu_torch.training.trainer import Trainer
@@ -103,6 +122,12 @@ def main(argv=None) -> int:
     model = Realise(cfg, generator=torch.Generator().manual_seed(args.seed))
     model.install_glyphs(build_glyphs(args, tokenizer, cfg))
     model.install_pho_vocab_tables(*featurizer.pho2_tables())
+    if args.init_ckpt:
+        # The checkpoint's weights, BN statistics and glyphs (the glyph dedup
+        # tables are re-derived on load); the pinyin tables installed above
+        # are the featurizer's and stay.
+        model.load_state_dict(load_checkpoint(args.init_ckpt))
+        logger.info("initialized from %s", args.init_ckpt)
 
     train_data = load_dataset(args, tokenizer, args.train_file,
                               num_synthetic=256, seed=args.seed)
@@ -122,22 +147,43 @@ def main(argv=None) -> int:
         use_kernels=False if args.no_kernels else None, seed=args.seed,
         device=device)
 
+    if args.resume:
+        ckpts = list_checkpoints(args.output_dir)
+        if ckpts:
+            ckpt_dir = ckpts[-1][1]
+            state = load_trainer_state(ckpt_dir)  # raises without trainer.pt
+            trainer.model.load_state_dict(load_checkpoint(ckpt_dir))
+            trainer.load_state_dict(state)
+            logger.info("resumed from %s at step %d", ckpt_dir, trainer.step)
+        else:
+            logger.info("--resume: no checkpoint in %s, starting at step 0",
+                        args.output_dir)
+
     def batches():
-        epoch = 0
+        # The stream the uninterrupted run would see from the trainer's step
+        # on: the same per-epoch shuffle seeds, the restored step's epoch,
+        # and its offset skipped before featurizing (skipping is free).
+        epoch, skip = divmod(trainer.step, steps_per_epoch)
         while True:
-            for examples in batch_iterator(train_data, batch_size, shuffle=True,
-                                           seed=args.seed + epoch,
-                                           pad_final=False):
+            for i, examples in enumerate(batch_iterator(
+                    train_data, batch_size, shuffle=True,
+                    seed=args.seed + epoch, pad_final=False)):
+                if i < skip:
+                    continue
                 # Pad a short final batch here (fixed shapes) and zero the
                 # padded rows' loss.
                 feed = featurizer.featurize(pad_examples(examples, batch_size))
                 feed = zero_padding_loss(feed, len(examples))
                 yield featurizer.device_batch(feed)
+            skip = 0
             epoch += 1
+
+    training_args = dict(vars(args))
 
     def save_fn(step, tr):
         path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
-                               cfg)
+                               cfg, trainer_state=tr.state_dict(),
+                               training_args=training_args)
         logger.info("saved checkpoint %s", path)
 
     if args.do_train:
@@ -170,6 +216,10 @@ def main(argv=None) -> int:
             logger.info("checkpoint %d dev: %s", step, res)
             all_results[str(step)] = res
             scored.append((ckpt_dir, res[args.order_metric]))
+        if scored and args.remove_unused_ckpts:
+            kept = retain_top_k(scored, args.num_save_ckpts,
+                                reverse=args.metric_reverse)
+            logger.info("kept the %d best checkpoints: %s", len(kept), kept)
         write_json(os.path.join(args.output_dir, "dev_results.json"),
                    all_results)
         if scored:

@@ -15,7 +15,9 @@ them. The host batch holds numpy arrays in the reference batch contract
 plus the host-only fields (id, src, tgt, tokens_size, lengths) that the text
 reconstruction reads. :func:`to_device` turns the device part into int64
 tensors, the conv stream's distinct rows of a call (``res_rows``,
-``res_inverse``, ``Realise.conv_rows``) too. Only the Python tokenizer path is ported; the C++ featurizer is not.
+``res_inverse``, ``Realise.conv_rows``) too. Raw sentences are tokenized by
+the Python tokenizer or, given a ``data.native.NativeFeaturizer``, by the
+C++ one (``Featurizer.featurize_raw``); both give the same arrays.
 """
 
 from __future__ import annotations
@@ -123,22 +125,58 @@ class Featurizer:
         }
         if with_labels:
             batch["tgt_idx"] = tgt_idx
-        if cfg.pho_encoder == "pho2":
+        return self._add_pho(batch)
+
+    def _add_pho(self, batch: Dict) -> Dict:
+        """The pinyin features of ``batch['src_idx']``: a table gather."""
+        pho_encoder = self.cfg.pho_encoder
+        if pho_encoder == "pho2":
             table, lens = self.pho2_tables()
-            batch["pho_idx"] = table[src_idx]        # (B, S, P) gather
-            batch["pho_lens"] = lens[src_idx]        # (B, S)
-        elif cfg.pho_encoder != "none":
+            batch["pho_idx"] = table[batch["src_idx"]]   # (B, S, P) gather
+            batch["pho_lens"] = lens[batch["src_idx"]]   # (B, S)
+        elif pho_encoder != "none":
             raise NotImplementedError(
-                f"pho_encoder {cfg.pho_encoder!r} is not ported yet")
+                f"pho_encoder {pho_encoder!r} is not ported yet")
         return batch
 
-    def featurize_raw(self, sentences: Sequence[str],
+    def featurize_raw(self, sentences: Sequence[str], native=None,
                       seq_len: Optional[int] = None) -> Dict:
-        """Raw sentences → the same host-batch contract as :meth:`featurize`
-        (Python tokenizer path)."""
-        examples = [make_example(str(i), t, t, self.tokenizer)
-                    for i, t in enumerate(sentences)]
-        return self.featurize(examples, with_labels=False, seq_len=seq_len)
+        """Raw sentences → the same host-batch contract as :meth:`featurize`.
+
+        ``native``: an optional ``data.native.NativeFeaturizer``; the C++
+        tokenizer then does tokenization and batch assembly in one call and
+        only the pinyin gather stays in numpy. Without it the Python
+        tokenizer path (:func:`make_example`) runs. Both give the same
+        arrays."""
+        s = seq_len or self.cfg.max_seq_length
+        if native is None:
+            examples = [make_example(str(i), t, t, self.tokenizer)
+                        for i, t in enumerate(sentences)]
+            return self.featurize(examples, with_labels=False, seq_len=s)
+        enc = native.encode_batch(list(sentences), max_len=s)
+        lengths = enc["lengths"]
+
+        def sizes(i: int):
+            # The full token widths (lengths == len(tokens_size)); the
+            # (B, S) transport array holds at most S - 2, so a truncated
+            # sentence takes its widths from the Python tokenizer (the id
+            # arrays stay the native ones).
+            n_tok = int(lengths[i])
+            if n_tok <= s - 2:
+                return enc["tokens_size"][i][:n_tok].tolist()
+            return make_example(str(i), sentences[i], sentences[i],
+                                self.tokenizer)["tokens_size"]
+
+        return self._add_pho({
+            "id": [str(i) for i in range(len(sentences))],
+            "src": list(sentences),
+            "tgt": list(sentences),
+            "tokens_size": [sizes(i) for i in range(len(sentences))],
+            "lengths": lengths,
+            "src_idx": enc["src_idx"],
+            "masks": enc["masks"],
+            "loss_masks": enc["loss_masks"],
+        })
 
     @staticmethod
     def device_batch(batch: Dict) -> Dict[str, np.ndarray]:

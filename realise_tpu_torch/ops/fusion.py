@@ -28,14 +28,23 @@ def gate_fusion(weight: torch.Tensor, bias: torch.Tensor,
     """Fuse N streams with per-token gates conditioned on all streams and the
     mean-pooled semantic stream (streams[0]). ``weight``: the gate_net's
     torch (N, (N+1)·H) weight, applied one H-wide slice per piece so the
-    (B, S, (N+1)·H) concat never exists, in the JAX order of additions."""
+    (B, S, (N+1)·H) concat never exists, in the JAX order of additions.
+
+    Each piece's N gate logits are a float32 product-sum over H rounded once
+    to the piece's dtype (the JAX matmul with ``preferred_element_type``),
+    taken as an elementwise product and a row reduction rather than a
+    matmul: cuBLAS splits the K = H sum of an N = 3 product in a way that
+    depends on the row count, so a row's gates (and a served sentence's
+    corrections) changed with the rows beside it. The reduction's order
+    depends on H alone."""
     sem = streams[0]
     pooled = masked_mean_pool(sem, attention_mask)[:, None, :].expand_as(sem)
     h = sem.shape[-1]
     logits = bias.to(sem.dtype)
     for i, piece in enumerate(streams + [pooled]):
-        w_i = weight[:, i * h:(i + 1) * h].to(piece.dtype)
-        logits = logits + torch.matmul(piece, w_i.t())
+        w_i = weight[:, i * h:(i + 1) * h].to(piece.dtype).float()
+        product = (piece.float()[..., None, :] * w_i).sum(-1)
+        logits = logits + product.to(piece.dtype)
     if softmax_gate:
         gates = torch.softmax(logits.float(), dim=-1).to(sem.dtype)
     else:

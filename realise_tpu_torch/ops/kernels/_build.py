@@ -1,12 +1,14 @@
-"""Build the port's CUDA sources into shared libraries and load them.
+"""Build the port's native sources into shared libraries and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for sm_90a into ``build/realise_tpu_torch/lib<name>.so`` beside
-the package (``build/`` is ignored by git). A library is rebuilt when the
-hash of its source, of every ``csrc/*.cuh`` header it includes (directly or
-through another header) and of the flags changes, and is loaded with
-``ctypes``. Nothing happens at import time: the first CUDA launch builds and
-loads.
+the package (``build/`` is ignored by git). The host libraries of
+``HOST_SOURCES`` (the C++ featurizer) take the same road with the host's
+C++ compiler. A library is rebuilt when the hash of its source, of every
+local header it includes (directly or through another header) and of the
+flags changes, and is loaded with ``ctypes``. Nothing happens at import
+time: the first use builds and loads; a failed build raises with the
+compiler's output.
 """
 
 from __future__ import annotations
@@ -27,6 +29,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "realise_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared")
+# Host libraries: library name → its C++ source in csrc/.
+HOST_SOURCES = {"realise_featurizer": "featurizer.cpp"}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -41,13 +47,31 @@ def find_nvcc() -> str:
                        "the CUDA kernels are built from source at first use")
 
 
+def find_cxx() -> str:
+    """The host C++ compiler: ``$CXX``, else ``g++``, else ``c++``."""
+    for cand in (os.environ.get("CXX", ""), "g++", "c++"):
+        path = shutil.which(cand) if cand else None
+        if path:
+            return path
+    raise RuntimeError("no C++ compiler found (set CXX or put g++ on PATH); "
+                       "the native featurizer is built from source at first "
+                       "use")
+
+
+def _command(name: str, src: Path, out: Path) -> List[str]:
+    if name in HOST_SOURCES:
+        return [find_cxx(), *CXX_FLAGS, "-o", str(out), str(src)]
+    return [find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 _INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def sources(name: str) -> List[Path]:
-    """``csrc/<name>.cu`` and the local headers it includes, transitively."""
+    """The source of library ``name`` (``csrc/<name>.cu``, or its entry of
+    ``HOST_SOURCES``) and the local headers it includes, transitively."""
     seen: List[Path] = []
-    todo = [CSRC_DIR / f"{name}.cu"]
+    todo = [CSRC_DIR / HOST_SOURCES.get(name, f"{name}.cu")]
     while todo:
         path = todo.pop()
         if path in seen:
@@ -62,7 +86,8 @@ def sources(name: str) -> List[Path]:
 
 def _paths(name: str):
     files = sources(name)
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = CXX_FLAGS if name in HOST_SOURCES else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in files:
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     digest = h.hexdigest()
@@ -70,7 +95,7 @@ def _paths(name: str):
 
 
 def build(names: Sequence[str]) -> Dict[str, str]:
-    """Compile every stale library of ``names``, one ``nvcc`` per source, all
+    """Compile every stale library of ``names``, one compiler per source, all
     started together. Returns {name: compiler log} for the ones built."""
     procs = {}
     for name in names:
@@ -80,14 +105,14 @@ def build(names: Sequence[str]) -> Dict[str, str]:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f"lib{name}.{os.getpid()}.so"
         procs[name] = (subprocess.Popen(
-            [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            _command(name, src, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-            tmp, lib, stamp, digest)
+            src, tmp, lib, stamp, digest)
     logs, failed = {}, []
-    for name, (proc, tmp, lib, stamp, digest) in procs.items():
+    for name, (proc, src, tmp, lib, stamp, digest) in procs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on {name}.cu:\n{logs[name]}")
+            failed.append(f"the build of {src.name} failed:\n{logs[name]}")
             continue
         os.replace(tmp, lib)
         stamp.write_text(digest)

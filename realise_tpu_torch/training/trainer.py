@@ -22,8 +22,15 @@ without its static slot budgets, which exist for XLA's static shapes).
 
 Eval (``prepare_eval_tables`` + ``eval_step``, trainer.py:531-592 of the JAX
 package, one process) runs the deterministic forward with the (V, H) stream
-tables of the current weights and the serving kernels. Not ported yet:
-meshes and checkpoints with optimizer state.
+tables of the current weights and the serving kernels.
+
+:meth:`Trainer.state_dict` holds what a resume needs beside the weights: the
+optimizer's state, the step and the dropout generator's state. The JAX step
+folds the step into its dropout key (trainer.py:135), so a JAX resume
+replays the same masks by construction; here the layer seeds come from a
+stateful generator, which must be restored for a resumed run to train on
+the masks of the run it continues. Not ported yet: meshes (ROADMAP queue A
+item 6).
 """
 
 from __future__ import annotations
@@ -154,6 +161,20 @@ class Trainer:
         self.step += 1
         return loss_sum / denom
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The optimizer's state, the step and the dropout generator's state
+        (the model's weights are saved apart, ``model.state_dict()``)."""
+        return {"optimizer": self.optimizer.state_dict(), "step": self.step,
+                "generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore :meth:`state_dict`. AdamW casts its moments to each
+        parameter's device and dtype; the params are float32, so the moments
+        come back exactly."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.generator.set_state(state["generator"])
+
     def prepare_eval_tables(self, featurizer) -> None:
         """The (V, H) glyph-feature and GRU tables of the CURRENT weights
         (``precompute_inference_tables``): every later ``eval_step`` gathers
@@ -195,6 +216,8 @@ class Trainer:
         loss = None
         last_loss = float("nan")
         for batch in batches:
+            if max_steps is not None and self.step >= max_steps:
+                break  # a resumed run that has already reached max_steps
             loss = self.train_step(batch)
             count += 1
             step = self.step

@@ -240,9 +240,9 @@ def test_cli_test_device_and_checkpoint_rules(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="no checkpoints"):
         ttest.main(["--ckpt_dir", str(tmp_path), "--synthetic", "--device",
                     "cpu"])
-    with pytest.raises(SystemExit, match="item 2"):
+    with pytest.raises(SystemExit, match="item 6"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
-                     "--remove_unused_ckpts"])
+                     "--distributed"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttest.main(["--ckpt_dir", str(tmp_path), "--synthetic"])

@@ -29,7 +29,8 @@ def test_port_files_found():
     "ops/kernels/bert_block_train.py", "training/optim.py",
     "training/trainer.py", "data/dataset.py", "text/glyphs.py",
     "cli/common.py", "cli/train.py", "cli/test.py", "eval/metric_core.py",
-    "eval/remove_de.py", "eval/sig_test.py"])
+    "eval/remove_de.py", "eval/sig_test.py", "cli/serve.py", "data/native.py",
+    "models/torch_import.py", "training/checkpoint.py", "serving.py"])
 def test_scan_covers_the_training_modules(module):
     assert ROOT / "realise_tpu_torch" / module in FILES
 
@@ -84,3 +85,18 @@ def test_build_hash_follows_an_included_header(tmp_path, monkeypatch):
     (tmp_path / "b.cuh").write_text("int y;\n")
     assert _build._paths("k")[3] != before
     assert [p.name for p in _build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+
+
+def test_featurizer_builds_from_the_ports_own_source():
+    """The native featurizer's library is built from the port's copy of
+    featurizer.cpp with the host compiler's flags, into the port's build
+    directory: nothing of the JAX package's csrc/ or its make build."""
+    from realise_tpu_torch.ops.kernels import _build
+
+    src, lib, _, digest = _build._paths("realise_featurizer")
+    assert src == ROOT / "realise_tpu_torch" / "csrc" / "featurizer.cpp"
+    assert lib == ROOT / "build" / "realise_tpu_torch" / "librealise_featurizer.so"
+    assert [p.name for p in _build.sources("realise_featurizer")] == ["featurizer.cpp"]
+    cmd = _build._command("realise_featurizer", src, lib)
+    assert cmd[1:] == [*_build.CXX_FLAGS, "-o", str(lib), str(src)]
+    assert digest != _build._paths("bert_block")[3]

@@ -93,7 +93,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and every model and optimizer tensor are the same bits; the checkpoint's
    size and its save and load times; then ``cli/train`` on the card, 2
    steps, then ``--resume`` to 4 with ``--do_eval --remove_unused_ckpts
-   --num_save_ckpts 1``: both checkpoints scored, the best one kept.
+   --num_save_ckpts 1``: both checkpoints scored, the best one kept;
+11. the model zoo at full width (``PRESETS``): the fine-tuning presets bert,
+   bert-pho1, bert-pho2, bert-pho1-res, bert-pho2-res, bert-pho2-res-arch2,
+   bert-pho2-res-arch3-mlm and bert-pho2-res-arch4, and arch3 with each
+   ablation switch (--with_pho no, --with_res no, --fusion sum,
+   --image_model_type 1), in bf16 at the published dropout with seeded
+   random weights and the procedural glyphs. Each config's encoder layers
+   (semantic + pho + output block): bert 12 + 0 + 0; the four merged presets
+   and arch2 12 + 4 + 2 = 18; arch3-mlm, arch4, --with_res no, --fusion sum
+   and resnet1 19; --with_pho no 12 + 0 + 3 = 15. For each: the Trainer's 2
+   steps at B=32 on the factorized streams (each layer through the four
+   train kernels each step, finite losses), the split of a B=32 and a B=256
+   step (host clock, CUDA events, profiled kernel time, peak memory); the
+   weights saved, loaded by
+   the Corrector and served in requests of 8 and 32 sentences (each layer
+   through both serving kernels, the kernel path's argmax against the plain
+   path's as in phase 5) and the sentences/s of 32-sentence requests. Phase
+   5e's 48 placements on the bert-pho2-res, arch2 and arch3-mlm checkpoints
+   (their integrate and MLM transform products are plain bf16 products);
+   ``cli/show_gate`` on an arch3 and the --with_pho no checkpoint, its TSV
+   on the kernel path against the plain path's within ``GATE_TOL``; then
+   phase 8's float32 kernel-vs-plain training check (loss and every
+   gradient) on bert-pho2-res and arch3-mlm. Each kernel's launches are
+   counted from 0 on the phase's own path (the counted train steps and
+   requests, not the checks), and each must be launched.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -333,7 +357,11 @@ def kernel_breakdown(fn, label, iters=5, attempts=3):
     a trace loses or clips kernels at its start (a B=256 backward profile
     once lacked the first product of all its calls, and 3-call profiles read
     the first call's first launch as nothing, PERF.md §6). The queue is
-    drained before each trace starts. A trace that holds no device time at
+    drained before each trace starts and after every call, so the warm-up
+    call's kernels end before the active steps begin (a train step that
+    does not wait for the card left part of its warm-up step in the active
+    one, and bert's profiled B=256 step read more kernel time than its
+    CUDA events, PERF.md §5). A trace that holds no device time at
     all (one B=256 FFN train forward profile once, cause not known, PERF.md
     §7) is logged with ``label`` (phase and shape) and taken again; a trace
     that holds some is returned as it is."""
@@ -345,10 +373,9 @@ def kernel_breakdown(fn, label, iters=5, attempts=3):
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=iters,
                                        repeat=1)) as prof:
-            for i in range(iters + 1):
+            for _ in range(iters + 1):
                 fn()
-                if i == iters:
-                    torch.cuda.synchronize()
+                torch.cuda.synchronize()
                 prof.step()
         rows = []
         for evt in prof.key_averages():
@@ -459,7 +486,7 @@ def serve(device, cfg, gen, ckpt_root, batch_size=32,
     model = Realise(cfg, generator=gen)
     model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
                                      generator=gen) < 0.5).float())
-    layers = (cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers)
+    layers = encoder_layers(cfg)
     save_checkpoint(ckpt_root, 0, model.state_dict(), cfg)
     del model
     t1 = time.perf_counter()
@@ -1015,7 +1042,7 @@ def daemon(device, cfg, ckpt_root, serial, card, clients=8, distinct=96,
     from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
                                               build_synthetic_vocab)
 
-    layers = cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers
+    layers = encoder_layers(cfg)
     vocab = build_synthetic_vocab(size=cfg.vocab_size,
                                   cjk_chars=REAL_VOCAB_CJK_CHARS)
     rng = np.random.default_rng(SEED + 3)
@@ -1190,9 +1217,10 @@ def check_batch_invariance(device, cfg, corrector, card):
     hooks = [layer.register_forward_hook(
         lambda mod, args, out, name=f"{stack}.{i}": captured.append((name, out)))
         for stack in ("bert", "pho_model", "output_block")
+        if getattr(model, stack, None) is not None
         for i, layer in enumerate(getattr(model, stack).encoder.layer)]
     hooks.append(model.output_block.register_forward_pre_hook(
-        lambda mod, args, kw: captured.append(("gate fusion",
+        lambda mod, args, kw: captured.append((f"{cfg.fusion} fusion",
                                                 kw["inputs_embeds"])),
         with_kwargs=True))
 
@@ -1240,8 +1268,8 @@ def check_batch_invariance(device, cfg, corrector, card):
     finally:
         for h in hooks:
             h.remove()
-    log(f"batch invariance: {differ} of {cases} placements differ, {flips} "
-        f"argmax tokens flipped [{card}]")
+    log(f"batch invariance {cfg.model_type}: {differ} of {cases} placements "
+        f"differ, {flips} argmax tokens flipped [{card}]")
     if differ:
         fail(f"batch invariance: {differ} of {cases} placements of a request "
              f"in a larger batch change its bits")
@@ -1268,10 +1296,14 @@ def train_batches(cfg, n, batch_size, seed):
         for i in range(n)]
 
 
+_GLYPHS = {}
+
+
 def seeded_model(cfg, seed):
     """Seeded weights, the procedural glyph table of the synthetic vocab
-    (non-CJK tokens share the zero image, as in the real vocab) and its
-    pinyin tables: the tables the training CLI installs."""
+    (non-CJK tokens share the zero image, as in the real vocab; built once
+    per font set) and its pinyin tables: the tables the training CLI
+    installs, as the preset has them."""
     import torch
 
     from realise_tpu_torch.data.features import Featurizer
@@ -1285,11 +1317,16 @@ def seeded_model(cfg, seed):
     vocab = build_synthetic_vocab(size=cfg.vocab_size,
                                   cjk_chars=REAL_VOCAB_CJK_CHARS)
     model = Realise(cfg, generator=torch.Generator().manual_seed(seed))
-    model.install_glyphs(build_glyph_table(
-        vocab, num_fonts=cfg.num_fonts,
-        use_traditional_font=cfg.use_traditional_font))
-    feat = Featurizer(WordPieceTokenizer(vocab_to_dict(vocab)), cfg)
-    model.install_pho_vocab_tables(*feat.pho2_tables())
+    if cfg.with_res:
+        fonts = (cfg.num_fonts, cfg.use_traditional_font)
+        if fonts not in _GLYPHS:
+            _GLYPHS[fonts] = build_glyph_table(
+                vocab, num_fonts=cfg.num_fonts,
+                use_traditional_font=cfg.use_traditional_font)
+        model.install_glyphs(_GLYPHS[fonts])
+    if cfg.pho_encoder == "pho2":
+        feat = Featurizer(WordPieceTokenizer(vocab_to_dict(vocab)), cfg)
+        model.install_pho_vocab_tables(*feat.pho2_tables())
     return model
 
 
@@ -1334,12 +1371,15 @@ def step_split(trainer, batch, label, card):
 
     model = trainer.model
     b, s = np.asarray(batch["src_idx"]).shape
+    conv_rows = gru_rows = "none"
     if trainer.per_token_streams:
         conv_rows = gru_rows = f"{b * s}"
     else:
-        rows = model.conv_rows(batch["src_idx"])["res_rows"]
-        conv_rows = f"{len(np.unique(rows))} (bucket {len(rows)})"
-        gru_rows = f"{min(model.pho_uniq_idx.shape[0], b * s)}"
+        if model.cfg.with_res:
+            rows = model.conv_rows(batch["src_idx"])["res_rows"]
+            conv_rows = f"{len(np.unique(rows))} (bucket {len(rows)})"
+        if model.pho_uniq_idx is not None:
+            gru_rows = f"{min(model.pho_uniq_idx.shape[0], b * s)}"
     device = next(model.parameters()).device
     trainer.train_step(batch)
     split, plain_span = StepSplit(), model.span
@@ -1384,7 +1424,7 @@ def train(device, cfg, card):
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
     from realise_tpu_torch.training.trainer import Trainer
 
-    layers = cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers
+    layers = encoder_layers(cfg)
     t0 = time.perf_counter()
     model = seeded_model(cfg, SEED)
     small = train_batches(cfg, 6, 32, SEED)
@@ -1500,7 +1540,8 @@ def check_train_paths(device, cfg):
                / max(g.abs().max().item(), floor))
         if err > worst:
             worst_name, worst = n, err
-    log(f"train paths f32 dropout 0 B=32: loss_sum kernel {loss_k:.6f} plain "
+    log(f"train paths {cfg.model_type} f32 dropout 0 B=32: loss_sum kernel "
+        f"{loss_k:.6f} plain "
         f"{loss_p:.6f} (relative {loss_err:.2e}, tol {PATH_LOSS_REL}); worst "
         f"gradient {worst_name} relative {worst:.2e} (tol {PATH_GRAD_REL}) "
         f"over {len(grads_p)} tensors")
@@ -1630,7 +1671,7 @@ def evaluate(device, cfg, trainer, card):
     from realise_tpu_torch.training.trainer import Trainer
 
     n_sent, batch_size = 1024, 32
-    layers = cfg.num_hidden_layers + cfg.pho_num_layers + cfg.out_num_layers
+    layers = encoder_layers(cfg)
     tok = WordPieceTokenizer(vocab_to_dict(build_synthetic_vocab(
         size=cfg.vocab_size, cjk_chars=REAL_VOCAB_CJK_CHARS)))
     feat = Featurizer(tok, cfg)
@@ -1798,6 +1839,246 @@ def resume(device, cfg, card, steps=4, batch_size=32):
         fail(f"resume: kept {kept}, expected only the best, {best}")
 
 
+# ------------------------------------------------------------ the presets
+ARCH3 = "bert-pho2-res-arch3"
+# Phase 11's configs: (name, model_type, the overrides cli/common.build_config
+# sets for the flags), every fine-tuning preset but arch3 (phases 5-10's)
+# and the four ablation switches on arch3.
+PRESETS = (
+    ("bert", "bert", {}),
+    ("bert-pho1", "bert-pho1", {}),
+    ("bert-pho2", "bert-pho2", {}),
+    ("bert-pho1-res", "bert-pho1-res", {}),
+    ("bert-pho2-res", "bert-pho2-res", {}),
+    ("bert-pho2-res-arch2", "bert-pho2-res-arch2", {}),
+    ("bert-pho2-res-arch3-mlm", "bert-pho2-res-arch3-mlm", {}),
+    ("bert-pho2-res-arch4", "bert-pho2-res-arch4", {}),
+    ("arch3 --with_pho no", ARCH3, {"pho_encoder": "none"}),
+    ("arch3 --with_res no", ARCH3, {"res_encoder": "none"}),
+    ("arch3 --fusion sum", ARCH3, {"fusion": "sum"}),
+    ("arch3 --image_model_type 1", ARCH3, {"res_encoder": "resnet1"}),
+)
+# The configs whose served rows phase 11 holds to phase 5e's batch
+# invariance: the integrate products of merged and concat fusion and the
+# MLM head's transform are plain bf16 products outside the kernels.
+INVARIANCE = ("bert-pho2-res", "bert-pho2-res-arch2", "bert-pho2-res-arch3-mlm")
+# The float32 kernel-vs-plain training check of phase 8, on these.
+F32_PATHS = ("bert-pho2-res", "bert-pho2-res-arch3-mlm")
+# show_gate's TSV, kernel path against plain path, bf16: each gate within
+# 8 bf16 ulps at [0.5, 1) (the gate logits come through every encoder
+# layer, rounded differently on the two paths, PERF.md §6).
+GATE_TOL = 2.0 ** -5
+
+
+def encoder_layers(cfg) -> int:
+    """The encoder layers a step runs: semantic + pho + output block."""
+    return (cfg.num_hidden_layers + (cfg.pho_num_layers if cfg.with_pho else 0)
+            + cfg.out_num_layers)
+
+
+def preset_config(model_type, overrides, **kw):
+    from realise_tpu_torch.config import config_for
+
+    return config_for(model_type, vocab_size=21128, dtype="bfloat16",
+                      **dict(overrides, **kw))
+
+
+def check_show_gate(device, ckpt_root, name, card):
+    """cli/show_gate on the card on a checkpoint: the kernel path's TSV
+    against --no_kernels's, the same rows and each gate within GATE_TOL."""
+    import numpy as np
+
+    from realise_tpu_torch.cli import show_gate
+
+    tsv = {}
+    for kernels in (True, False):
+        out = os.path.join(ckpt_root, f"gate_{kernels}.tsv")
+        t = time.perf_counter()
+        if show_gate.main(["--ckpt_dir", ckpt_root, "--synthetic",
+                           "--output", out]
+                          + ([] if kernels else ["--no_kernels"])) != 0:
+            fail(f"show_gate {name} failed")
+        lines = open(out, encoding="utf-8").read().splitlines()
+        tsv[kernels] = (lines[0], [ln.split("\t")[:3] for ln in lines[1:]],
+                        np.asarray([[float(x) for x in ln.split("\t")[3:]]
+                                    for ln in lines[1:]]),
+                        time.perf_counter() - t)
+    (head_k, rows_k, g_k, dt_k), (head_p, rows_p, g_p, dt_p) = tsv[True], tsv[False]
+    diff = float(np.abs(g_k - g_p).max()) if g_k.size else float("nan")
+    log(f"show_gate {name}: columns {head_k.split(chr(9))[3:]}, {len(rows_k)} "
+        f"rows, kernel vs plain path gates max diff {diff:.4g} (tol "
+        f"{GATE_TOL}); {dt_k:.2f} s with the kernels, {dt_p:.2f} s plain "
+        f"[{card}]")
+    if (head_k != head_p or rows_k != rows_p or not rows_k
+            or not diff <= GATE_TOL):
+        fail(f"show_gate {name}: the kernel path's TSV disagrees with the "
+             f"plain path's")
+
+
+def presets(device, card):
+    """Phase 11: every config of PRESETS at full width in bf16 at its
+    published dropout, seeded random weights, the procedural glyphs: the
+    Trainer's 2 steps at B=32 on the factorized streams (each encoder layer
+    through the four train kernels each step, finite losses), the split of
+    a B=32 and a B=256 step (host clock, kernel time, peak memory); the
+    weights saved as a port checkpoint, loaded by the Corrector and served
+    in requests of 8 and 32 sentences (each layer through both serving
+    kernels, the kernel path's argmax against the plain path's), the
+    sentences/s of 32-sentence requests; phase 5e on INVARIANCE's configs,
+    cli/show_gate on arch3's and the --with_pho no checkpoint. Then the
+    float32 kernel-vs-plain training check on F32_PATHS. Returns the
+    kernels' launches over the phase and the per-config rows."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.serving import Corrector
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab)
+    from realise_tpu_torch.training.checkpoint import save_checkpoint
+    from realise_tpu_torch.training.trainer import Trainer
+
+    serve_requests, timed_requests = ((8, 40, 60), (32, 90, 120)), 8
+    serving = (bb.attention_block, bb.ffn_block)
+    wrappers = serving + tuple(tbt.KERNEL_WRAPPERS)
+    for fn in wrappers:
+        fn.launches = 0
+    # The launches of the phase's own path (the counted train steps and
+    # requests), without those of the checks and the timing runs.
+    launches = dict.fromkeys((fn.__name__ for fn in wrappers), 0)
+    vocab = build_synthetic_vocab(size=21128, cjk_chars=REAL_VOCAB_CJK_CHARS)
+    rows = []
+    configs = list(PRESETS) + [("arch3 (gates)", ARCH3, {})]
+    for k, (name, model_type, overrides) in enumerate(configs):
+        cfg = preset_config(model_type, overrides)
+        layers = encoder_layers(cfg)
+        gate_only = name == "arch3 (gates)"  # show_gate's arch3 checkpoint
+        t0 = time.perf_counter()
+        model = seeded_model(cfg, SEED + 100 + k)
+        params = sum(p.numel() for p in model.parameters())
+        row = dict(name=name, layers=layers, params=params)
+        with tempfile.TemporaryDirectory() as ckpt_root:
+            if not gate_only:
+                small = train_batches(cfg, 2, 32, SEED + 200 + k)
+                trainer = Trainer(cfg, model, learning_rate=5e-5,
+                                  warmup_steps=2, total_steps=100,
+                                  weight_decay=0.01, max_grad_norm=1.0,
+                                  device=device, seed=SEED)
+                if not trainer.use_kernels:
+                    fail(f"presets {name}: the Trainer did not turn the "
+                         f"kernels on")
+                losses = []
+                for batch in small:
+                    before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+                    losses.append(float(trainer.train_step(batch)))
+                    per_step = [fn.launches - n for fn, n in
+                                zip(tbt.KERNEL_WRAPPERS, before)]
+                    if per_step != [layers] * 4:
+                        fail(f"presets {name}: train kernels launched "
+                             f"{per_step} times in a step, expected {layers} "
+                             f"each")
+                    for fn, n in zip(tbt.KERNEL_WRAPPERS, per_step):
+                        launches[fn.__name__] += n
+                if not all(math.isfinite(x) for x in losses):
+                    fail(f"presets {name}: non-finite losses {losses}")
+                row["losses"] = losses
+                row["b32"] = step_split(trainer, small[-1], name, card)
+                row["b256"] = step_split(
+                    trainer, train_batches(cfg, 1, 256, SEED + 300 + k)[0],
+                    name, card)
+                model = trainer.model
+                del trainer
+            save_checkpoint(ckpt_root, 0, model.state_dict(), cfg)
+            del model
+            torch.cuda.empty_cache()
+            if cfg.fusion in ("gate", "softmax_gate") and (
+                    gate_only or not cfg.with_pho):
+                check_show_gate(device, ckpt_root, name, card)
+            if gate_only:
+                log(f"presets {name}: init+save "
+                    f"{time.perf_counter() - t0:.2f} s")
+                continue
+            corrector = Corrector(ckpt_root, synthetic_vocab=True,
+                                  batch_size=32, device=device)
+            if not corrector.use_kernels:
+                fail(f"presets {name}: the Corrector did not turn the "
+                     f"kernels on")
+            row["tables"] = sorted(corrector.tables)
+            rng = np.random.default_rng(SEED + 400 + k)
+            requests = [sentences(vocab, rng, n, lo, hi)
+                        for n, lo, hi in serve_requests]
+            for sents in requests:  # warm
+                corrector.correct(sents)
+            before = [fn.launches for fn in serving]
+            steps0 = corrector.steps
+            for sents in requests:
+                out = corrector.correct(sents)
+                if [len(o) for o in out] != [len(x) for x in sents]:
+                    fail(f"presets {name}: corrected sentences changed length")
+            steps = corrector.steps - steps0
+            got = [fn.launches - n for fn, n in zip(serving, before)]
+            if got != [layers * steps] * 2:
+                fail(f"presets {name}: serving kernels launched {got} times "
+                     f"in {steps} steps, expected {layers} per step")
+            for fn, n in zip(serving, got):
+                launches[fn.__name__] += n
+            sync(device)
+            t = time.perf_counter()
+            for _ in range(timed_requests):
+                corrector.correct(requests[-1])
+            row["sent_s"] = (timed_requests * len(requests[-1])
+                             / (time.perf_counter() - t))
+            host = corrector.featurizer.featurize_raw(requests[-1])
+            batch = to_device(corrector.featurizer.device_batch(host), device)
+            with torch.inference_mode():
+                logits_k = corrector.model(batch, tables=corrector.tables,
+                                           use_kernels=True)["logits"]
+                logits_p = corrector.model(batch, tables=corrector.tables,
+                                           use_kernels=False)["logits"]
+            if not bool(torch.isfinite(logits_k).all()):
+                fail(f"presets {name}: non-finite logits")
+            check_argmax(f"presets {name}", logits_k, logits_p,
+                         batch["masks"].bool())
+            del logits_k, logits_p
+            if name in INVARIANCE:
+                check_batch_invariance(device, cfg, corrector, card)
+            del corrector
+        torch.cuda.empty_cache()
+        b32, b256 = row["b32"], row["b256"]
+        log(f"presets {name}: {layers} encoder layers, {params} parameters, "
+            f"serving tables {row['tables']}; "
+            f"losses {row['losses']}; B=32 step {b32['host_ms']:.3f} ms host, "
+            f"{b32['kernel_ms']:.3f} ms kernels, {b32['peak_gib']:.2f} GiB; "
+            f"B=256 step {b256['host_ms']:.3f} ms host, "
+            f"{b256['kernel_ms']:.3f} ms kernels, {b256['peak_gib']:.2f} GiB; "
+            f"served {row['sent_s']:.1f} sentences/s in 32-sentence "
+            f"requests; {time.perf_counter() - t0:.2f} s [{card}]")
+        rows.append(row)
+    for name in F32_PATHS:
+        model_type, overrides = next((m, o) for n, m, o in PRESETS if n == name)
+        check_train_paths(device, preset_config(model_type, overrides))
+    log(f"presets: launches on the phase's path {launches} (with the checks "
+        f"and timing runs {({fn.__name__: fn.launches for fn in wrappers})})")
+    if not all(launches.values()):
+        fail(f"presets: a kernel was never launched: {launches}")
+    log("presets table: config | layers | parameters | B=32 host ms | B=32 "
+        "event ms | B=32 kernel ms | B=32 peak GiB | B=256 host ms | B=256 "
+        "event ms | B=256 kernel ms | B=256 peak GiB | served sentences/s")
+    for r in rows:
+        b32, b256 = r["b32"], r["b256"]
+        log(f"  | {r['name']} | {r['layers']} | {r['params']} | "
+            f"{b32['host_ms']:.3f} | {b32['step_ms']:.3f} | "
+            f"{b32['kernel_ms']:.3f} | {b32['peak_gib']:.2f} | "
+            f"{b256['host_ms']:.3f} | {b256['step_ms']:.3f} | "
+            f"{b256['kernel_ms']:.3f} | {b256['peak_gib']:.2f} | "
+            f"{r['sent_s']:.1f} |")
+    return launches, rows
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1851,6 +2132,8 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     resume(device, cfg, card)
+    torch.cuda.empty_cache()
+    presets(device, card)
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"
     sources = {"attention_block": "realise_tpu/ops/pallas/bert_block.py:67",

@@ -43,16 +43,12 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
                       max_position_embeddings=64)
 
 # Flags of the JAX CLIs whose parts are not ported yet → (how the parser
-# takes them, the ROADMAP queue A item that ports them): the remaining
-# presets and pretraining stages (7), multi-GPU data parallelism (6), and
-# length buckets and step traces in training (9).
+# takes them, the ROADMAP queue A item that ports them): the pretraining
+# stages and the merge (7b), multi-GPU data parallelism (6), and length
+# buckets and step traces in training (9).
 UNPORTED: Dict[str, Tuple[dict, str]] = {
-    "--pho_ckpt": ({}, "7 (presets and pretraining stages)"),
-    "--res_ckpt": ({}, "7 (presets and pretraining stages)"),
-    "--image_model_type": (dict(type=int), "7 (presets and pretraining stages)"),
-    "--with_pho": ({}, "7 (presets and pretraining stages)"),
-    "--with_res": ({}, "7 (presets and pretraining stages)"),
-    "--fusion": ({}, "7 (presets and pretraining stages)"),
+    "--pho_ckpt": ({}, "7b (pretraining stages and the merge)"),
+    "--res_ckpt": ({}, "7b (pretraining stages and the merge)"),
     "--mesh": ({}, "6 (multi-GPU data parallel)"),
     "--distributed": (dict(action="store_true"), "6 (multi-GPU data parallel)"),
     "--length_buckets": ({}, "9 (length buckets and step traces in training)"),
@@ -82,6 +78,13 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=17)
     p.add_argument("--resfonts", default="font3_fanti",
                    choices=["font1", "font2", "font2_fanti", "font3_fanti"])
+    p.add_argument("--image_model_type", type=int, default=0,
+                   help="1: the CharResNet1 glyph encoder (res_encoder "
+                        "resnet1)")
+    # The ablation switches (src/models_abla.py via run.py:374-376).
+    p.add_argument("--with_pho", default="yes", choices=["yes", "no"])
+    p.add_argument("--with_res", default="yes", choices=["yes", "no"])
+    p.add_argument("--fusion", default=None, choices=[None, "gate", "sum"])
     p.add_argument("--dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--device", default=None,
@@ -115,11 +118,24 @@ def resolve_resfonts(args) -> Tuple[int, bool]:
 
 
 def build_config(args, vocab_size: int) -> RealiseConfig:
+    """The preset of ``--model_type`` with the flags' overrides, as the JAX
+    package's ``build_config`` sets them (cli/common.py:123-145): the
+    ``--resfonts`` fonts (over a merged preset's one font too),
+    ``--image_model_type 1`` → resnet1, ``--with_pho no`` / ``--with_res no``
+    → no such stream, ``--fusion``."""
     num_fonts, use_trad = resolve_resfonts(args)
     overrides = dict(vocab_size=vocab_size,
                      max_seq_length=args.max_seq_length,
                      num_fonts=num_fonts, use_traditional_font=use_trad,
                      dtype=args.dtype)
+    if args.image_model_type == 1:
+        overrides["res_encoder"] = "resnet1"
+    if args.with_pho == "no":
+        overrides["pho_encoder"] = "none"
+    if args.with_res == "no":
+        overrides["res_encoder"] = "none"
+    if args.fusion:
+        overrides["fusion"] = args.fusion
     if args.tiny:
         overrides.update(TINY_OVERRIDES)
         overrides["max_seq_length"] = min(args.max_seq_length, 32)
@@ -143,7 +159,10 @@ def build_tokenizer(args) -> WordPieceTokenizer:
         size=RealiseConfig().vocab_size, cjk_chars=REAL_VOCAB_CJK_CHARS)))
 
 
-def build_glyphs(args, tokenizer, cfg: RealiseConfig) -> np.ndarray:
+def build_glyphs(args, tokenizer, cfg: RealiseConfig) -> Optional[np.ndarray]:
+    """The glyph table of the config's fonts; None without a glyph stream."""
+    if not cfg.with_res:
+        return None
     from realise_tpu_torch.text.glyphs import build_glyph_table
 
     font_paths = args.font_paths.split(",") if args.font_paths else None

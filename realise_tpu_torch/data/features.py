@@ -11,13 +11,16 @@ them. The host batch holds numpy arrays in the reference batch contract
     loss_masks       (B, S) int32, 1 on sentence positions 1..length
     pho_idx          (B, S, P) int32   (pho2 models)
     pho_lens         (B, S) int32
+    pho1_idx         (B, S, 3) int32   (pho1 models)
 
 plus the host-only fields (id, src, tgt, tokens_size, lengths) that the text
-reconstruction reads. :func:`to_device` turns the device part into int64
-tensors, the conv stream's distinct rows of a call (``res_rows``,
-``res_inverse``, ``Realise.conv_rows``) too. Raw sentences are tokenized by
-the Python tokenizer or, given a ``data.native.NativeFeaturizer``, by the
-C++ one (``Featurizer.featurize_raw``); both give the same arrays.
+reconstruction reads. The pinyin features are a gather of the vocab tables
+on ``src_idx`` after either featurizer. :func:`to_device` turns the device
+part into int64 tensors, the conv stream's distinct rows of a call
+(``res_rows``, ``res_inverse``, ``Realise.conv_rows``) too. Raw sentences
+are tokenized by the Python tokenizer or, given a
+``data.native.NativeFeaturizer``, by the C++ one
+(``Featurizer.featurize_raw``); both give the same arrays.
 """
 
 from __future__ import annotations
@@ -28,11 +31,11 @@ import numpy as np
 import torch
 
 from realise_tpu_torch.config import RealiseConfig
-from realise_tpu_torch.text.pinyin import Pinyin2Convertor
+from realise_tpu_torch.text.pinyin import Pinyin1Convertor, Pinyin2Convertor
 from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
 
 DEVICE_KEYS = ("src_idx", "tgt_idx", "masks", "loss_masks", "pho_idx",
-               "pho_lens", "res_rows", "res_inverse")
+               "pho_lens", "pho1_idx", "res_rows", "res_inverse")
 
 
 def make_example(sid: str, src: str, tgt: str, tokenizer: WordPieceTokenizer) -> Dict:
@@ -76,6 +79,7 @@ class Featurizer:
         self.cfg = cfg
         self._pho2_table: Optional[np.ndarray] = None
         self._pho2_lens: Optional[np.ndarray] = None
+        self._pho1_table: Optional[np.ndarray] = None
 
     def pho2_tables(self):
         """(V, P) pinyin char ids + (V,) lens for every vocab token."""
@@ -85,6 +89,15 @@ class Featurizer:
                 range(len(self.tokenizer)))
             self._pho2_table, self._pho2_lens = conv.convert(vocab)
         return self._pho2_table, self._pho2_lens
+
+    def pho1_table(self) -> np.ndarray:
+        """(V, 3) initial/final/tone ids for every vocab token."""
+        if self._pho1_table is None:
+            vocab = self.tokenizer.convert_ids_to_tokens(
+                range(len(self.tokenizer)))
+            self._pho1_table = np.asarray(Pinyin1Convertor().convert(vocab),
+                                          dtype=np.int32)
+        return self._pho1_table
 
     def featurize(self, examples: Sequence[Dict], with_labels: bool = True,
                   seq_len: Optional[int] = None) -> Dict:
@@ -134,9 +147,8 @@ class Featurizer:
             table, lens = self.pho2_tables()
             batch["pho_idx"] = table[batch["src_idx"]]   # (B, S, P) gather
             batch["pho_lens"] = lens[batch["src_idx"]]   # (B, S)
-        elif pho_encoder != "none":
-            raise NotImplementedError(
-                f"pho_encoder {pho_encoder!r} is not ported yet")
+        elif pho_encoder == "pho1":
+            batch["pho1_idx"] = self.pho1_table()[batch["src_idx"]]  # (B, S, 3)
         return batch
 
     def featurize_raw(self, sentences: Sequence[str], native=None,

@@ -1,7 +1,8 @@
 """Carry JAX weights across: the JAX package's (params, state) → a port state dict.
 
-The inverse of ``realise_tpu/models/torch_import.py`` for the arch3 wiring.
-It takes the nested dicts of numpy arrays that the JAX package's
+The inverse of ``realise_tpu/models/torch_import.py`` for every fine-tuning
+preset's tree (``_build_realise`` of the JAX package, models/realise.py:
+276-327). It takes the nested dicts of numpy arrays that the JAX package's
 ``load_checkpoint`` returns and imports nothing of JAX:
 
 * encoder layers stacked along a leading axis are unstacked into
@@ -10,7 +11,14 @@ It takes the nested dicts of numpy arrays that the JAX package's
   (D, 3H) kernels to (3H, D), conv kernels HWIO to OIHW;
 * BatchNorm running statistics move from the state tree to
   ``running_mean``/``running_var``, and the glyph tensor
-  ``state['char_images']`` becomes ``char_images_multifonts``.
+  ``state['char_images']`` becomes ``char_images_multifonts``;
+* each part goes where the preset has it: the pho tree (pho1: the 65-symbol
+  table and the BERT; pho2: the GRU too) to ``pho_*``, the CharResNet of
+  either variant with ``resnet_layernorm`` where the tree has one (not the
+  merged presets), ``fusion.gate_net`` or ``fusion.integrate``, and the head
+  to ``classifier.bias`` (tied) or ``cls.predictions.*`` (MLM: the
+  decoder's (H, V) kernel becomes its (V, H) weight, its bias
+  ``cls.predictions.bias``).
 
 The deduplicated tables in the state (``res_uniq_*``, ``pho_*``) are derived
 from the glyphs and the vocabulary; the port derives its own
@@ -104,27 +112,42 @@ def char_resnet_state_dict(params: Mapping, state: Mapping,
 
 def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
                         cfg: RealiseConfig) -> Dict[str, torch.Tensor]:
-    """JAX arch3 (params, state) → a state dict for ``Realise(cfg)``."""
+    """JAX (params, state) of any fine-tuning preset → a state dict for
+    ``Realise(cfg)``."""
     sd: Dict[str, torch.Tensor] = {}
     sd.update(bert_state_dict(params["bert"], cfg.num_hidden_layers, "bert."))
 
-    pho = params["pho"]
-    sd["pho_embeddings.weight"] = _t(pho["embeddings"]["embedding"])
-    gru = pho["gru"]
-    sd["pho_gru.weight_ih_l0"] = _t(np.asarray(gru["w_ih"]).T)
-    sd["pho_gru.weight_hh_l0"] = _t(np.asarray(gru["w_hh"]).T)
-    sd["pho_gru.bias_ih_l0"] = _t(gru["b_ih"])
-    sd["pho_gru.bias_hh_l0"] = _t(gru["b_hh"])
-    sd.update(bert_state_dict(pho["model"], cfg.pho_num_layers, "pho_model."))
+    if "pho" in params:
+        pho = params["pho"]
+        sd["pho_embeddings.weight"] = _t(pho["embeddings"]["embedding"])
+        if "gru" in pho:
+            gru = pho["gru"]
+            sd["pho_gru.weight_ih_l0"] = _t(np.asarray(gru["w_ih"]).T)
+            sd["pho_gru.weight_hh_l0"] = _t(np.asarray(gru["w_hh"]).T)
+            sd["pho_gru.bias_ih_l0"] = _t(gru["b_ih"])
+            sd["pho_gru.bias_hh_l0"] = _t(gru["b_hh"])
+        sd.update(bert_state_dict(pho["model"], cfg.pho_num_layers,
+                                  "pho_model."))
 
-    sd.update(char_resnet_state_dict(params["res"]["resnet"], state["resnet"],
-                                     "resnet."))
-    _layer_norm(sd, "resnet_layernorm", params["res"]["layer_norm"])
-    sd["char_images_multifonts"] = _t(state["char_images"])
+    if "res" in params:
+        sd.update(char_resnet_state_dict(params["res"]["resnet"],
+                                         state["resnet"], "resnet."))
+        if "layer_norm" in params["res"]:
+            _layer_norm(sd, "resnet_layernorm", params["res"]["layer_norm"])
+        sd["char_images_multifonts"] = _t(state["char_images"])
 
-    _linear(sd, "gate_net", params["fusion"]["gate_net"])
+    for name, p in params.get("fusion", {}).items():  # gate_net | integrate
+        _linear(sd, name, p)
     if cfg.out_num_layers > 0:
         sd.update(bert_state_dict(params["output_block"], cfg.out_num_layers,
                                   "output_block."))
-    sd["classifier.bias"] = _t(params["head"]["bias"])
+    head = params["head"]
+    if cfg.head == "mlm":
+        pre = "cls.predictions."
+        _linear(sd, pre + "transform.dense", head["transform"])
+        _layer_norm(sd, pre + "transform.LayerNorm", head["layer_norm"])
+        sd[pre + "decoder.weight"] = _t(np.asarray(head["decoder"]["kernel"]).T)
+        sd[pre + "bias"] = _t(head["decoder"]["bias"])
+    else:
+        sd["classifier.bias"] = _t(head["bias"])
     return sd

@@ -1,48 +1,64 @@
-"""The ReaLiSe arch3 model (``bert-pho2-res-arch3``) as an ``nn.Module``.
+"""The ReaLiSe model zoo as one ``nn.Module``.
 
 The port of ``realise_tpu.models.realise.apply_realise`` (models/realise.py:
-692-853) for the published wiring (reference: src/models.py:652-870):
+692-853) for every fine-tuning preset of ``config.MODEL_PRESETS`` and the
+ablation switches (reference: src/models.py:32-1170, src/models_abla.py):
 
 * semantic stream: a BERT over ``src_idx``;
-* phonetic stream: pinyin chars → masked GRU last hidden per token → pho BERT;
-* graphic stream: glyph gather → CharResNet → ``resnet_layernorm``;
-* fusion: per-token gates over the three streams (sigmoid; softmax for arch4);
-* output block: a BERT on the fused states with position ids forced to 0;
-* head: a classifier tied to the word embeddings (only ``classifier.bias`` is
-  its own), ``hidden @ word_embeddings.T`` in the activation dtype plus the
-  bias cast to it.
+* phonetic stream (``pho_encoder``): pho2, pinyin chars → masked GRU last
+  hidden per token → pho BERT; pho1, the sum of three lookups of one
+  65-symbol table (initial, final, tone) → pho BERT; or none;
+* graphic stream (``res_encoder``): glyph gather → CharResNet (``resnet``)
+  or CharResNet1 (``resnet1``) → ``resnet_layernorm``; or none;
+* fusion: per-token gates over the 2 or 3 streams (``gate`` sigmoid,
+  ``softmax_gate`` for arch4), ``concat`` (arch2: Linear over the
+  concatenated streams, ``integrate``), ``sum``, ``merged`` (the
+  SpellBertPho*[Res] presets: the raw glyph features, with no LayerNorm, are
+  added to the pho stream's input embeddings before the pho BERT, and
+  ``integrate`` reads [sem, pho], or [sem, res] without a pho stream), or
+  ``baseline`` (the semantic stream alone);
+* output block: a BERT of ``out_num_layers`` (0, 2 or 3) on the fused
+  states with position ids forced to 0;
+* head: a classifier tied to the word embeddings (only ``classifier.bias``
+  is its own), or the untied MLM head (``cls.predictions``: dense → gelu →
+  LayerNorm → decoder + bias; src/models.py:912). The logits are the hidden
+  states times the table in the activation dtype plus the bias cast to it.
 
 Parameter names are the reference's torch names (models/torch_import.py in
-the JAX package maps them), so :func:`realise_tpu_torch.models.convert.
+the JAX package maps them; the merged presets' ``pho_res_model`` is this
+module's ``pho_model``), so :func:`realise_tpu_torch.models.convert.
 state_dict_from_jax` carries JAX weights across and the JAX importer reads a
 port state dict back. Serving swaps the per-token GRU and conv streams for
 (V, H) tables that depend only on the token id
-(:func:`precompute_inference_tables`).
+(:func:`precompute_inference_tables`). The pretraining stages
+(``fusion="pretrain"``) are not ported yet: :func:`unported_reason`.
 
 A model starts in eval mode, the deterministic forward. In training mode
 (``model.train()``) the forward is the training step's:
 dropout on each stack's embedding output, inside every encoder layer and on
 the fused hiddens before the head, all drawn from the caller's host
-generator; BatchNorm on batch statistics (updating the running ones); and
-``loss_sum``/``loss_count`` of :func:`masked_cross_entropy_sum`.
+generator in the order semantic, pho, output block, head (a preset without
+a stack draws nothing for it); BatchNorm on batch statistics (updating the
+running ones); and ``loss_sum``/``loss_count`` of
+:func:`masked_cross_entropy_sum`.
 
 The GRU and conv streams depend only on the token id, so in either mode they
 factorize over the vocabulary when that pays, as ``apply_realise`` routes
 them (models/realise.py:747-775 of the JAX package), computing the same
 function and gradients:
 
-* the GRU scans each distinct pinyin row once (the tables of
+* the GRU (pho2 only) scans each distinct pinyin row once (the tables of
   :meth:`Realise.install_pho_vocab_tables`, ~1.3k rows against V = 21128)
   when the call has more token slots than rows, and tokens gather their row;
-* the CharResNet runs over the distinct glyph rows (the dedup of
-  :meth:`Realise.install_glyphs`: non-CJK tokens share the zero image) when
-  the call has more token slots than rows, or over the call's own distinct
-  rows when the batch carries them (``res_rows``/``res_inverse``, counted on
-  the host by :meth:`Realise.conv_rows`), with the BatchNorm statistics
-  weighted by each row's occurrence count.
+* the CharResNet (either variant, any fusion) runs over the distinct glyph
+  rows (the dedup of :meth:`Realise.install_glyphs`: non-CJK tokens share
+  the zero image) when the call has more token slots than rows, or over the
+  call's own distinct rows when the batch carries them
+  (``res_rows``/``res_inverse``, counted on the host by
+  :meth:`Realise.conv_rows`), with the BatchNorm statistics weighted by each
+  row's occurrence count.
 
-The per-token streams stay as the reference path (``per_token=True``). The
-other presets of the zoo are not ported yet.
+The per-token streams stay as the reference path (``per_token=True``).
 """
 
 from __future__ import annotations
@@ -54,11 +70,17 @@ import numpy as np
 import torch
 from torch import nn
 
-from realise_tpu_torch.config import PHO2_VOCAB_SIZE, RealiseConfig
+from realise_tpu_torch.config import (
+    PHO1_VOCAB_SIZE,
+    PHO2_VOCAB_SIZE,
+    RealiseConfig,
+)
 from realise_tpu_torch.ops.bert import BertModel
-from realise_tpu_torch.ops.fusion import gate_fusion
+from realise_tpu_torch.ops.fusion import concat_fusion, gate_fusion, sum_fusion
 from realise_tpu_torch.ops.gru import gru_last_hidden, gru_last_hidden_factored
 from realise_tpu_torch.ops.layers import (
+    ACTIVATIONS,
+    dense,
     dropout,
     embed,
     layer_norm,
@@ -116,6 +138,43 @@ class TiedClassifier(nn.Module):
         self.bias = nn.Parameter(torch.zeros(vocab_size))
 
 
+class _Transform(nn.Module):
+    def __init__(self, cfg: RealiseConfig):
+        super().__init__()
+        self.dense = nn.Linear(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+
+class _Predictions(nn.Module):
+    def __init__(self, cfg: RealiseConfig):
+        super().__init__()
+        self.transform = _Transform(cfg)
+        self.decoder = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False)
+        self.bias = nn.Parameter(torch.zeros(cfg.vocab_size))
+
+
+class MLMHead(nn.Module):
+    """BertOnlyMLMHead (``cls.predictions.*``, reference:
+    modeling_bert.py:436-462): dense → activation → LayerNorm → an untied
+    decoder, and its own bias. :meth:`forward` returns the logits without
+    the bias, and the bias, so that the training loss folds the bias in
+    (``apply_head_split`` of the JAX package, models/realise.py:100-128)."""
+
+    def __init__(self, cfg: RealiseConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.predictions = _Predictions(cfg)
+
+    def forward(self, hidden: torch.Tensor):
+        p, cfg = self.predictions, self.cfg
+        t = p.transform
+        h = ACTIVATIONS[cfg.hidden_act](dense(hidden, t.dense.weight,
+                                              t.dense.bias))
+        h = layer_norm(h, t.LayerNorm.weight, t.LayerNorm.bias,
+                       cfg.layer_norm_eps)
+        return torch.matmul(h, p.decoder.weight.to(h.dtype).t()), p.bias
+
+
 def row_bucket(n: int) -> int:
     """``n`` rounded up to a multiple of 2^(bits(n) − 4): at most an eighth
     more rows, and eight row counts in each octave."""
@@ -129,19 +188,37 @@ def no_span(name: str):
 
 
 def unported_reason(cfg: RealiseConfig) -> Optional[str]:
-    """Why the port cannot build this config yet (None = it can)."""
-    if (cfg.pho_encoder, cfg.res_encoder, cfg.head) != ("pho2", "resnet",
-                                                        "linear_tied"):
-        return (f"only the pho2 + resnet + tied-head wiring is ported, got "
-                f"{cfg.pho_encoder!r}/{cfg.res_encoder!r}/{cfg.head!r}")
-    if cfg.fusion not in ("gate", "softmax_gate"):
-        return f"fusion {cfg.fusion!r} is not ported yet"
+    """Why the port cannot build this config yet (None = it can): the
+    pretraining stages, whose objectives (``apply_pretrain`` of the JAX
+    package) are ROADMAP queue A item 7b."""
+    if cfg.fusion == "pretrain" or cfg.head == "linear":
+        return (f"{cfg.model_type!r} is a pretraining stage (fusion "
+                f"{cfg.fusion!r}, head {cfg.head!r}); the pretraining "
+                f"objectives are not ported yet (ROADMAP queue A item 7b)")
     return None
 
 
+def _check_wiring(cfg: RealiseConfig) -> None:
+    for what, value, known in (
+            ("pho_encoder", cfg.pho_encoder, ("none", "pho1", "pho2")),
+            ("res_encoder", cfg.res_encoder, ("none", "resnet", "resnet1")),
+            ("fusion", cfg.fusion, ("baseline", "merged", "concat", "gate",
+                                    "softmax_gate", "sum")),
+            ("head", cfg.head, ("linear_tied", "mlm"))):
+        if value not in known:
+            raise ValueError(f"unknown {what} {value!r}; known: {known}")
+
+
 class Realise(nn.Module):
-    """arch3/arch4 ReaLiSe. ``generator`` seeds the initial weights (a CPU
-    ``torch.Generator``; default seed 0).
+    """ReaLiSe of any fine-tuning preset. ``generator`` seeds the initial
+    weights (a CPU ``torch.Generator``; default seed 0).
+
+    A model has the parts its config wires (the module docstring), and its
+    ``state_dict()`` the reference's keys of those parts alone: no
+    ``char_images_multifonts`` without a glyph stream, no
+    ``resnet_layernorm`` for the merged presets, ``integrate`` for merged
+    and concat fusion, ``gate_net`` for the gates, ``cls.predictions`` for
+    the MLM head.
 
     The factorized streams' tables are non-persistent buffers derived from
     the glyphs and the pinyin featurization, so ``state_dict()`` holds the
@@ -150,12 +227,14 @@ class Realise(nn.Module):
     re-derived by :meth:`install_glyphs` and after every ``load_state_dict``
     (None when more than 0.75·V glyphs are distinct: the conv then runs over
     the V vocab rows); ``pho_uniq_idx`` (U, P) / ``pho_uniq_lens`` (U,) /
-    ``pho_uniq_inverse`` (V,), set by :meth:`install_pho_vocab_tables`.
+    ``pho_uniq_inverse`` (V,), set by :meth:`install_pho_vocab_tables`
+    (pho2 only).
 
     ``span(name)`` brackets each part of the forward ('semantic', 'glyph',
-    'gru', 'pho_bert', 'fusion+output', 'head+ce'; the Trainer adds
-    'backward' and 'clip+adamw'); the default brackets nothing, a caller
-    that times the parts sets its own context-manager factory."""
+    'gru' (the pho2 GRU or the pho1 lookups), 'pho_bert', 'fusion+output',
+    'head+ce'; the Trainer adds 'backward' and 'clip+adamw'); the default
+    brackets nothing, a caller that times the parts sets its own
+    context-manager factory."""
 
     def __init__(self, cfg: RealiseConfig,
                  generator: Optional[torch.Generator] = None):
@@ -163,20 +242,35 @@ class Realise(nn.Module):
         reason = unported_reason(cfg)
         if reason is not None:
             raise NotImplementedError(reason)
+        _check_wiring(cfg)
         self.cfg = cfg
         h = cfg.hidden_size
         self.bert = BertModel(cfg, cfg.num_hidden_layers)
-        self.pho_embeddings = nn.Embedding(PHO2_VOCAB_SIZE, h)
-        self.pho_gru = nn.GRU(h, h, batch_first=True)
-        self.pho_model = BertModel(cfg, cfg.pho_num_layers, with_word=False)
-        self.resnet = CharResNet(cfg.num_fonts, h, cfg.res_encoder)
-        self.resnet_layernorm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
-        self.gate_net = nn.Linear((cfg.num_streams + 1) * h, cfg.num_streams)
+        if cfg.with_pho:
+            symbols = (PHO2_VOCAB_SIZE if cfg.pho_encoder == "pho2"
+                       else PHO1_VOCAB_SIZE)
+            self.pho_embeddings = nn.Embedding(symbols, h)
+            if cfg.pho_encoder == "pho2":
+                self.pho_gru = nn.GRU(h, h, batch_first=True)
+            self.pho_model = BertModel(cfg, cfg.pho_num_layers, with_word=False)
+        if cfg.with_res:
+            self.resnet = CharResNet(cfg.num_fonts, h, cfg.res_encoder)
+            if cfg.fusion != "merged":
+                self.resnet_layernorm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        n = cfg.num_streams
+        if cfg.fusion in ("gate", "softmax_gate"):
+            self.gate_net = nn.Linear((n + 1) * h, n)
+        elif cfg.fusion in ("merged", "concat"):
+            self.integrate = nn.Linear((2 if cfg.fusion == "merged" else n) * h, h)
         self.output_block = (BertModel(cfg, cfg.out_num_layers, with_word=False)
                              if cfg.out_num_layers > 0 else None)
-        self.classifier = TiedClassifier(cfg.vocab_size)
-        self.register_buffer("char_images_multifonts", torch.zeros(
-            cfg.vocab_size, cfg.num_fonts, cfg.glyph_size, cfg.glyph_size))
+        if cfg.head == "mlm":
+            self.cls = MLMHead(cfg)
+        else:
+            self.classifier = TiedClassifier(cfg.vocab_size)
+        if cfg.with_res:
+            self.register_buffer("char_images_multifonts", torch.zeros(
+                cfg.vocab_size, cfg.num_fonts, cfg.glyph_size, cfg.glyph_size))
         for name in ("res_uniq_first", "res_uniq_inverse", "pho_uniq_idx",
                      "pho_uniq_lens", "pho_uniq_inverse"):
             self.register_buffer(name, None, persistent=False)
@@ -192,8 +286,9 @@ class Realise(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """The JAX package's init: normal(0, initializer_range) for linear,
-        embedding and GRU weights, He normal for convolutions, zero biases,
-        unit LayerNorm/BatchNorm scales, fresh BN statistics."""
+        embedding and GRU weights, He normal for convolutions, zero biases
+        (the heads' too), unit LayerNorm/BatchNorm scales, fresh BN
+        statistics."""
         std = self.cfg.initializer_range
         for name, mod in self.named_modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
@@ -212,21 +307,34 @@ class Realise(nn.Module):
                                    generator=generator)
             elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
                 mod.reset_parameters()
-        self.classifier.bias.zero_()
+        (self.cls.predictions if self.cfg.head == "mlm"
+         else self.classifier).bias.zero_()
+
+    @property
+    def device(self) -> torch.device:
+        return self.bert.embeddings.word_embeddings.weight.device
 
     @torch.no_grad()
     def install_glyphs(self, glyphs) -> None:
         """Copy a (V, num_fonts, 32, 32) glyph tensor into the model and
-        derive its dedup tables."""
+        derive its dedup tables. A model without a glyph stream has no glyph
+        tensor and takes ``None``."""
+        if not self.cfg.with_res:
+            if glyphs is not None:
+                raise ValueError(f"{self.cfg.model_type!r} without a glyph "
+                                 f"stream takes no glyphs")
+            return
         self.char_images_multifonts.copy_(torch.as_tensor(np.asarray(glyphs)))
         self._derive_glyph_tables()
 
     def _derive_glyph_tables(self) -> None:
         """Bitwise row dedup of the glyphs (``install_glyphs`` of the JAX
         package, without its padding to 128 rows, a TPU tiling rule)."""
-        glyphs = self.char_images_multifonts
         self.res_uniq_first = self.res_uniq_inverse = None
         self._res_inverse_host = None
+        if not self.cfg.with_res:
+            return
+        glyphs = self.char_images_multifonts
         if glyphs.device.type == "meta":
             return
         v = glyphs.shape[0]
@@ -247,11 +355,16 @@ class Realise(nn.Module):
         """Install the distinct rows of the (V, P) pinyin ids + (V,) lengths
         of every vocab token (``Featurizer.pho2_tables``) and each token's
         row: the factorized GRU's tables (``install_pho_vocab_tables`` of
-        the JAX package, without its padding to 128 rows)."""
+        the JAX package, without its padding to 128 rows). A no-op for a
+        model without the pho2 GRU, as in the JAX package
+        (``_install_constants``), and without tables (``idx`` None: the GRU
+        then runs per token)."""
+        if self.cfg.pho_encoder != "pho2" or idx is None:
+            return
         idx, lens = np.asarray(idx, np.int64), np.asarray(lens, np.int64)
         rows = np.concatenate([idx, lens[:, None]], axis=1)
         uniq, inverse = np.unique(rows, axis=0, return_inverse=True)
-        device = self.char_images_multifonts.device
+        device = self.device
         self.pho_uniq_idx = torch.as_tensor(uniq[:, :-1], device=device)
         self.pho_uniq_lens = torch.as_tensor(uniq[:, -1], device=device)
         self.pho_uniq_inverse = torch.as_tensor(inverse.reshape(-1),
@@ -267,8 +380,9 @@ class Realise(nn.Module):
     def conv_rows(self, src_idx) -> Dict[str, np.ndarray]:
         """The distinct conv-table rows of one forward call's (B, S) host
         ids: {'res_rows': (R,) sorted rows, 'res_inverse': (B, S) positions
-        in them}. Counted with numpy before the batch goes to the device, so
-        the forward needs no ``torch.unique`` (a host sync mid-step).
+        in them}; {} for a model without a glyph stream. Counted with numpy
+        before the batch goes to the device, so the forward needs no
+        ``torch.unique`` (a host sync mid-step).
 
         The U distinct rows are padded to R = :func:`row_bucket` (U) by
         repeating the last one; no token points at a pad, so it weighs 0 in
@@ -277,6 +391,8 @@ class Realise(nn.Module):
         the host; with a count of its own for each batch that took more time
         than the convolutions (PERF.md §6), with the buckets the counts
         repeat from batch to batch."""
+        if not self.cfg.with_res:
+            return {}
         ids = np.asarray(src_idx, np.int64)
         if self._res_inverse_host is not None:
             ids = self._res_inverse_host[ids]
@@ -350,65 +466,72 @@ class Realise(nn.Module):
                 per_token: bool = False) -> Dict[str, torch.Tensor]:
         """→ {'logits' (B, S, V), 'gates'?, 'loss_sum', 'loss_count'}.
 
-        ``batch``: src_idx, masks (B, S), and pho_idx (B, S, P) + pho_lens
+        ``batch``: src_idx, masks (B, S); pho2: pho_idx (B, S, P) + pho_lens
         (B, S) unless ``tables`` holds the precomputed 'pho' table or the GRU
-        factorizes; with tgt_idx and loss_masks (B, S) the loss sum and count
-        come too, and in training mode they come instead of the logits (the
-        loss reads the unbiased logits; the biased (B, S, V) tensor is not
-        built); with res_rows (U,) and res_inverse (B, S) from
-        :meth:`conv_rows` the conv stream runs over those rows.
-        ``tables``: {'res', 'pho'} (V, H) from :func:`precompute_inference_tables`
-        (eval mode only). ``use_kernels``: run every encoder layer through the
-        fused block kernels (ops/kernels/bert_block.py in eval mode,
-        bert_block_train.py in training mode). ``generator``: the host
-        generator of the training mode's dropout keys and layer seeds.
-        ``per_token``: run both streams per token slot, never factorized
-        (the reference path, for comparison)."""
+        factorizes; pho1: pho1_idx (B, S, 3); with tgt_idx and loss_masks
+        (B, S) the loss sum and count come too, and in training mode they
+        come instead of the logits (the loss reads the unbiased logits; the
+        biased (B, S, V) tensor is not built); with res_rows (U,) and
+        res_inverse (B, S) from :meth:`conv_rows` the conv stream runs over
+        those rows. ``tables``: {'res', 'pho'} (V, H) from
+        :func:`precompute_inference_tables` (eval mode only).
+        ``use_kernels``: run every encoder layer through the fused block
+        kernels (ops/kernels/bert_block.py in eval mode, bert_block_train.py
+        in training mode). ``return_gates``: the (B, S, N) gates of a gate
+        fusion. ``generator``: the host generator of the training mode's
+        dropout keys and layer seeds. ``per_token``: run both streams per
+        token slot, never factorized (the reference path, for comparison)."""
         cfg, dtype = self.cfg, self.dtype
         mask, src_idx = batch["masks"], batch["src_idx"]
-        b, s = src_idx.shape
         if self.training and tables:
             raise ValueError("the inference tables serve eval mode only; "
                              "training runs the live streams")
         tables = tables or {}
         span = self.span
+        merged = cfg.fusion == "merged"
 
         with span("semantic"):
             sem = self.bert(input_ids=src_idx, attention_mask=mask,
                             use_kernels=use_kernels, generator=generator)
 
-        with span("glyph"):
-            rows = None if per_token else batch.get("res_rows")
-            if "res" in tables:
-                feats = tables["res"].to(dtype)[src_idx]
-            elif rows is not None or (not per_token
-                                      and b * s > self.res_conv_rows):
-                feats = self._factorized_conv(src_idx, rows,
-                                              batch.get("res_inverse"))
-            else:
-                feats = self.res_features(src_idx.reshape(-1)).reshape(b, s, -1)
-            ln = self.resnet_layernorm
-            res = layer_norm(feats, ln.weight, ln.bias, cfg.layer_norm_eps)
+        res = None
+        if cfg.with_res:
+            with span("glyph"):
+                res = self._glyph_features(batch, tables, per_token)
+                if not merged:
+                    ln = self.resnet_layernorm
+                    res = layer_norm(res, ln.weight, ln.bias,
+                                     cfg.layer_norm_eps)
 
-        with span("gru"):
-            if "pho" in tables:
-                gru_h = tables["pho"].to(dtype)[src_idx]
-            elif (not per_token and self.pho_uniq_idx is not None
-                    and b * s > self.pho_uniq_idx.shape[0]):
-                gru_h = self._factorized_gru(src_idx)
-            else:
-                gru_h = self.gru_features(batch["pho_idx"].reshape(b * s, -1),
-                                          batch["pho_lens"].reshape(b * s))
-                gru_h = gru_h.reshape(b, s, -1)
-        with span("pho_bert"):
-            pho = self.pho_model(inputs_embeds=gru_h, attention_mask=mask,
-                                 use_kernels=use_kernels, generator=generator)
+        streams = [sem]
+        if cfg.with_pho:
+            with span("gru"):
+                pho_in = self._pho_inputs(batch, tables, per_token)
+                if merged and res is not None:
+                    # The merged presets' raw glyph features join the pho
+                    # BERT's input (src/models.py:354-357, 485-489).
+                    pho_in = pho_in + res
+            with span("pho_bert"):
+                streams.append(self.pho_model(
+                    inputs_embeds=pho_in, attention_mask=mask,
+                    use_kernels=use_kernels, generator=generator))
+        if res is not None and not (merged and cfg.with_pho):
+            streams.append(res)
 
         with span("fusion+output"):
-            hidden, gates = gate_fusion(
-                self.gate_net.weight, self.gate_net.bias, [sem, pho, res],
-                mask, softmax_gate=(cfg.fusion == "softmax_gate"),
-                return_gates=True)
+            gates = None
+            if cfg.fusion in ("gate", "softmax_gate"):
+                hidden, gates = gate_fusion(
+                    self.gate_net.weight, self.gate_net.bias, streams, mask,
+                    softmax_gate=(cfg.fusion == "softmax_gate"),
+                    return_gates=True)
+            elif cfg.fusion in ("merged", "concat"):
+                hidden = concat_fusion(self.integrate.weight,
+                                       self.integrate.bias, streams)
+            elif cfg.fusion == "sum":
+                hidden = sum_fusion(streams)
+            else:  # baseline
+                hidden = sem
             if self.output_block is not None:
                 position_ids = (torch.zeros_like(src_idx)
                                 if cfg.zero_out_positions else None)
@@ -422,19 +545,54 @@ class Realise(nn.Module):
                                  random_key(generator))
 
         with span("head+ce"):
-            word = self.bert.embeddings.word_embeddings.weight
-            bias = self.classifier.bias
-            logits_nb = torch.matmul(hidden, word.to(dtype).t())
+            if cfg.head == "mlm":
+                logits_nb, bias = self.cls(hidden)
+            else:
+                word = self.bert.embeddings.word_embeddings.weight
+                logits_nb = torch.matmul(hidden, word.to(dtype).t())
+                bias = self.classifier.bias
             has_loss = "tgt_idx" in batch and "loss_masks" in batch
             out = {}
             if not (self.training and has_loss):
                 out["logits"] = logits_nb + bias.to(dtype)
-            if return_gates:
+            if return_gates and gates is not None:
                 out["gates"] = gates
             if has_loss:
                 out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
                     logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
         return out
+
+    def _glyph_features(self, batch, tables, per_token) -> torch.Tensor:
+        """(B, S, H) raw CharResNet features of the batch's tokens: from the
+        'res' table, the factorized conv or the per-token conv."""
+        src_idx = batch["src_idx"]
+        b, s = src_idx.shape
+        rows = None if per_token else batch.get("res_rows")
+        if "res" in tables:
+            return tables["res"].to(self.dtype)[src_idx]
+        if rows is not None or (not per_token and b * s > self.res_conv_rows):
+            return self._factorized_conv(src_idx, rows,
+                                         batch.get("res_inverse"))
+        return self.res_features(src_idx.reshape(-1)).reshape(b, s, -1)
+
+    def _pho_inputs(self, batch, tables, per_token) -> torch.Tensor:
+        """(B, S, H) input embeddings of the pho BERT: the pho2 GRU's last
+        hiddens (from the 'pho' table, the factorized scan or the per-token
+        scan) or the sum of the three pho1 lookups (``_pho1_stream`` of the
+        JAX package: one table, rounded to the activation dtype, summed)."""
+        src_idx = batch["src_idx"]
+        b, s = src_idx.shape
+        if self.cfg.pho_encoder == "pho1":
+            return embed(self.pho_embeddings.weight, batch["pho1_idx"],
+                         self.dtype).sum(dim=2)
+        if "pho" in tables:
+            return tables["pho"].to(self.dtype)[src_idx]
+        if (not per_token and self.pho_uniq_idx is not None
+                and b * s > self.pho_uniq_idx.shape[0]):
+            return self._factorized_gru(src_idx)
+        gru_h = self.gru_features(batch["pho_idx"].reshape(b * s, -1),
+                                  batch["pho_lens"].reshape(b * s))
+        return gru_h.reshape(b, s, -1)
 
 
 @torch.no_grad()
@@ -445,15 +603,21 @@ def precompute_inference_tables(model: Realise, vocab_pho_idx=None,
     activation dtype, on the model's device.
 
     Both depend only on the token id, so at inference the conv stack and the
-    GRU loop reduce to table gathers. ``vocab_pho_idx/lens``: (V, P)/(V,)
-    pinyin featurization of every vocab token (``Featurizer.pho2_tables``);
-    without them only the 'res' table is built."""
-    device = model.char_images_multifonts.device
-    v = model.char_images_multifonts.shape[0]
-    ids = torch.arange(v, device=device)
-    tables = {"res": torch.cat([model.res_features(ids[i:i + batch_size])
-                                for i in range(0, v, batch_size)])}
-    if vocab_pho_idx is not None:
+    GRU loop reduce to table gathers. The 'res' table holds the raw
+    CharResNet features, before ``resnet_layernorm`` (the merged presets
+    read them raw), for either variant; models without a glyph stream get
+    none. ``vocab_pho_idx/lens``: (V, P)/(V,) pinyin featurization of every
+    vocab token (``Featurizer.pho2_tables``); with them a pho2 model gets
+    its 'pho' table. A pho1 model's lookups are already a table: it gets
+    none, as in the JAX package (models/realise.py:878-960)."""
+    tables = {}
+    device = model.device
+    if model.cfg.with_res:
+        v = model.char_images_multifonts.shape[0]
+        ids = torch.arange(v, device=device)
+        tables["res"] = torch.cat([model.res_features(ids[i:i + batch_size])
+                                   for i in range(0, v, batch_size)])
+    if model.cfg.pho_encoder == "pho2" and vocab_pho_idx is not None:
         idx = torch.as_tensor(np.asarray(vocab_pho_idx), dtype=torch.long,
                               device=device)
         lens = torch.as_tensor(np.asarray(vocab_pho_lens), dtype=torch.long,

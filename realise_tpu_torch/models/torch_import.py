@@ -4,13 +4,19 @@ and ``import_checkpoint_dir`` of ``realise_tpu/models/torch_import.py``).
 
 The port's modules carry the reference's parameter names, so importing is a
 matter of spelling: strip DDP's ``module.`` wrapper, undo merge.py's
-``char_resent.`` rename (merge.py:10-15), and set aside the entries that
-the reference saves and the arch3 forward does not read:
+``char_resent.`` rename (merge.py:10-15), read the merged presets' shared
+pho BERT ``pho_res_model.*`` (src/models.py:265,404) as the port's
+``pho_model.*`` and an MLM head's ``cls.predictions.decoder.bias`` as
+``cls.predictions.bias`` where only the first is saved (the JAX importer's
+rule, torch_import.py:189-191), and set aside the entries that the
+reference saves and the forward does not read:
 
 * ``classifier.weight``: the classifier is tied to the word embeddings
   (src/models.py), so the tensor is the embedding table again;
 * ``*.pooler.dense.*``: the BERT pooler, unused by the token classifier;
-* ``*.embeddings.position_ids``: the position buffer of newer transformers.
+* ``*.embeddings.position_ids``: the position buffer of newer transformers;
+* ``cls.predictions.decoder.bias`` beside ``cls.predictions.bias``:
+  transformers saves the bias twice, the decoder's being the same tensor.
 
 Each one set aside is logged by name. Every other key must be one of the
 port model's and every key of the port model must be present, with its
@@ -33,7 +39,9 @@ logger = logging.getLogger("realise_tpu_torch")
 
 BIN_FILE = "pytorch_model.bin"
 _UNREAD = re.compile(r"^(classifier\.weight|(.+\.)?pooler\.dense\.(weight|bias)"
-                     r"|(.+\.)?embeddings\.position_ids)$")
+                     r"|(.+\.)?embeddings\.position_ids"
+                     r"|cls\.predictions\.decoder\.bias)$")
+_MLM_BIAS, _MLM_DECODER_BIAS = "cls.predictions.bias", "cls.predictions.decoder.bias"
 
 
 def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
@@ -42,15 +50,21 @@ def load_torch_bin(path: str) -> Dict[str, torch.Tensor]:
 
 
 def normalize_state_dict(sd: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Strip DDP's ``module.`` prefix and map merge.py's ``char_resent.``
-    back to ``resnet.``."""
+    """Strip DDP's ``module.`` prefix, map merge.py's ``char_resent.`` back
+    to ``resnet.`` and the merged presets' ``pho_res_model.`` to
+    ``pho_model.``, and name an MLM decoder's bias ``cls.predictions.bias``
+    when that key is absent."""
     out: Dict[str, torch.Tensor] = {}
     for k, v in sd.items():
         if k.startswith("module."):
             k = k[len("module."):]
-        if k.startswith("char_resent."):
-            k = "resnet." + k[len("char_resent."):]
+        for old, new in (("char_resent.", "resnet."),
+                         ("pho_res_model.", "pho_model.")):
+            if k.startswith(old):
+                k = new + k[len(old):]
         out[k] = v
+    if _MLM_DECODER_BIAS in out and _MLM_BIAS not in out:
+        out[_MLM_BIAS] = out.pop(_MLM_DECODER_BIAS)
     return out
 
 
@@ -64,7 +78,7 @@ def _fit_to_model(sd: Mapping[str, torch.Tensor],
         want = Realise(cfg).state_dict()
     unread = sorted(k for k in sd if k not in want and _UNREAD.match(k))
     if unread:
-        logger.info("reference weights: %d entries the arch3 forward does not "
+        logger.info("reference weights: %d entries the forward does not "
                     "read are set aside: %s", len(unread), ", ".join(unread))
     out = {k: v for k, v in sd.items() if k not in unread}
     missing = sorted(set(want) - set(out))

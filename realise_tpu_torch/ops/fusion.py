@@ -1,10 +1,16 @@
-"""Selective-modality gate fusion (reference: src/models.py:689,840-850).
+"""Stream fusion (the port of ``realise_tpu.ops.fusion``).
 
-The port of ``realise_tpu.ops.fusion``'s gate path: per token, a gate network
-reads concat(sem, pho, res, mean-pooled sem) → one logit per stream; each
-stream is scaled by its sigmoid gate (arch3) or by a softmax over the gates
-(arch4) and the gated streams are summed. The mean-pool respects the padding
-mask and accumulates in float32.
+* :func:`gate_fusion` (reference: src/models.py:689,840-850): per token, a
+  gate network reads concat(streams..., mean-pooled sem) → one logit per
+  stream; each stream is scaled by its sigmoid gate (arch3) or by a softmax
+  over the gates (arch4) and the gated streams are summed. N = 3 streams, or
+  2 in the ablations without a pho or a res stream. The mean-pool respects
+  the padding mask and accumulates in float32.
+* :func:`concat_fusion`: Linear(concat(streams)) — the merged presets'
+  ``integrate`` over two streams (src/models.py:228-233) and arch2's over
+  three (src/models.py:513-649).
+* :func:`sum_fusion`: the plain sum of the streams (the ``--fusion sum``
+  ablation, src/models_abla.py:246-279).
 """
 
 from __future__ import annotations
@@ -12,6 +18,8 @@ from __future__ import annotations
 from typing import List
 
 import torch
+
+from realise_tpu_torch.ops.layers import dense
 
 
 def masked_mean_pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -53,3 +61,18 @@ def gate_fusion(weight: torch.Tensor, bias: torch.Tensor,
     if return_gates:
         return fused, gates
     return fused
+
+
+def concat_fusion(weight: torch.Tensor, bias: torch.Tensor,
+                  streams: List[torch.Tensor]) -> torch.Tensor:
+    """``dense(concat(streams))``: one product over K = N·H, rounded once to
+    the activation dtype, plus the bias (``weight``: torch's (H, N·H))."""
+    return dense(torch.cat(streams, dim=-1), weight, bias)
+
+
+def sum_fusion(streams: List[torch.Tensor]) -> torch.Tensor:
+    """The streams added in order, in the activation dtype."""
+    out = streams[0]
+    for s in streams[1:]:
+        out = out + s
+    return out

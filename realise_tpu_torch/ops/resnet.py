@@ -1,9 +1,12 @@
 """CharResNet glyph encoder (the "See" stream).
 
-The port of ``realise_tpu.ops.resnet.char_resnet`` for the
-``resnet`` variant (reference: src/char_cnn.py:9-55): five stride-2
-BasicBlocks take an F×32×32 glyph stack to an H-vector, each block
-conv3×3-BN-ReLU-conv3×3-BN plus a 1×1-conv-BN shortcut. Inputs stay NCHW and
+The port of ``realise_tpu.ops.resnet.char_resnet``: stride-2 BasicBlocks,
+each conv3×3-BN-ReLU-conv3×3-BN plus a 1×1-conv-BN shortcut, take an F×32×32
+glyph stack to an H-vector. The ``resnet`` variant (CharResNet, reference:
+src/char_cnn.py:35-55) runs five blocks to 1×1×H; ``resnet1`` (CharResNet1,
+src/char_cnn.py:57-74, ``--image_model_type 1``) four blocks to 2×2×H/4,
+flattened channel-major as torch's ``view`` of NCHW does (the JAX package
+transposes its NHWC to get that order). Inputs stay NCHW and
 kernels OIHW, torch's own layout; convolutions pad symmetrically (torch's
 ``padding=1``). BatchNorm (eps 1e-5) is applied in float32 as
 ``x * inv + (bias - mean * inv)``, the JAX form: in eval mode with the
@@ -30,12 +33,18 @@ BN_MOMENTUM = 0.1
 
 
 def _channels(variant: str, hidden_size: int = 768) -> List[int]:
-    """Channel plan scaled off the model width: 64→128→256→512→768 at 768."""
-    if variant != "resnet":
-        raise NotImplementedError(f"res encoder {variant!r} is not ported yet")
+    """Channel plan scaled off the model width: 64→128→256→512→768 at 768
+    for ``resnet``, 64→128→192→192 (a 2×2×192 flatten) for ``resnet1``."""
     h = hidden_size
-    return [max(h // 12, 1), max(h // 6, 1), max(h // 3, 1),
-            max((2 * h) // 3, 1), h]
+    if variant == "resnet":
+        return [max(h // 12, 1), max(h // 6, 1), max(h // 3, 1),
+                max((2 * h) // 3, 1), h]
+    if variant == "resnet1":
+        if h % 4:
+            raise ValueError(f"resnet1 flattens 2x2 positions: hidden_size "
+                             f"{h} must divide by 4")
+        return [max(h // 12, 1), max(h // 6, 1), h // 4, h // 4]
+    raise ValueError(f"unknown res encoder variant {variant!r}")
 
 
 def batch_norm_eval(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

@@ -257,8 +257,8 @@ class Corrector:
 
         self.tables = None
         if fast_path:
-            idx, lens = self.featurizer.pho2_tables()
-            self.tables = precompute_inference_tables(self.model, idx, lens)
+            self.tables = precompute_inference_tables(
+                self.model, *self.featurizer.pho2_tables())
         self.steps = 0  # device steps run, for callers that count launches
 
         s_max = self.cfg.max_seq_length

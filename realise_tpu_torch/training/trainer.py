@@ -14,8 +14,10 @@ The port of ``realise_tpu.training.trainer.Trainer``'s step
 Dropout keys and layer seeds are drawn on the host from the trainer's own
 ``torch.Generator`` (seeded by ``seed``): the step never waits for the
 device. With ``use_kernels`` every encoder layer runs the fused train
-kernels (ops/kernels/bert_block_train.py). The streams factorize as the
-model routes them (models/realise.py); the conv stream runs over each
+kernels (ops/kernels/bert_block_train.py). The step is the same for every
+preset: the streams factorize as the model routes them (models/realise.py),
+the GRU only in the pho2 presets, the conv in every preset with a glyph
+stream, the merged and the resnet1 ones too; the conv stream runs over each
 microbatch's distinct glyph rows, counted with numpy before the batch goes
 to the device (the JAX Trainer's ``_conv_unique_rows``, trainer.py:390-411,
 without its static slot budgets, which exist for XLA's static shapes).
@@ -176,13 +178,14 @@ class Trainer:
         self.generator.set_state(state["generator"])
 
     def prepare_eval_tables(self, featurizer) -> None:
-        """The (V, H) glyph-feature and GRU tables of the CURRENT weights
+        """The (V, H) glyph-feature and GRU tables of the CURRENT weights, as
+        the preset has them
         (``precompute_inference_tables``): every later ``eval_step`` gathers
         from them instead of running the conv stack and the GRU. Call again
         after loading other weights; a train step drops them."""
-        idx, lens = featurizer.pho2_tables()
         self.model.eval()
-        self._eval_tables = precompute_inference_tables(self.model, idx, lens)
+        self._eval_tables = precompute_inference_tables(
+            self.model, *featurizer.pho2_tables())
 
     @torch.inference_mode()
     def eval_step(self, device_batch: Dict[str, Any]) -> Dict[str, Any]:

@@ -183,7 +183,9 @@ def test_port_checkpoint_round_trip(pair, tmp_path):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="fusion"):
+    """Every fine-tuning preset builds; a pretraining stage raises, naming
+    its ROADMAP item."""
+    with pytest.raises(NotImplementedError, match="pretrain.*item 7"):
         trealise.Realise(RealiseConfig.from_dict(
-            config_for("bert-pho2-res-arch2", vocab_size=V, hidden_size=24,
+            config_for("pho2-pretrain", vocab_size=V, hidden_size=24,
                        num_attention_heads=3, intermediate_size=48).to_dict()))

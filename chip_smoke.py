@@ -117,7 +117,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    phase 8's float32 kernel-vs-plain training check (loss and every
    gradient) on bert-pho2-res and arch3-mlm. Each kernel's launches are
    counted from 0 on the phase's own path (the counted train steps and
-   requests, not the checks), and each must be launched.
+   requests, not the checks), and each must be launched;
+12. the pretraining stages and the merge at full width (bf16, V=21128,
+   seeded random weights, the procedural glyphs, ``--synthetic`` data):
+   ``cli/pretrain_pho`` for 4 updates at its published 64 x 2 (every loss
+   finite, 4 x 2 launches of each train kernel an update, the dev token
+   accuracy in ``dev_results.json`` with 4 launches of each serving kernel
+   a batch); ``cli/pretrain_res`` for 4 steps at 512 and its accuracy over
+   every CJK char of the vocab; ``pho2-res-pretrain`` through the Trainer, 2
+   steps at 64 and one eval batch; phase 8's float32 kernel-vs-plain
+   training check on pho2-pretrain and pho2-res-pretrain; ``cli/merge`` of
+   the two stages onto a seeded arch3 checkpoint, then ``cli/train
+   --max_steps 2 --do_eval`` from ``--init_ckpt`` the merged checkpoint and
+   from ``--init_ckpt`` the base with ``--pho_ckpt --res_ckpt``: the same
+   initial bits and loss traces, and ``cli/test`` on the merged run; then a
+   step of each stage timed (host clock, CUDA events, profiled kernels,
+   peak memory), the merge's seconds and the evals' sentences/s and
+   chars/s. The kernels' launches on the phase's path join the record.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -1278,7 +1294,8 @@ def check_batch_invariance(device, cfg, corrector, card):
 # ---------------------------------------------------------------- training
 def train_batches(cfg, n, batch_size, seed):
     """``n`` host batches of synthetic sentences (20-100 chars, the JAX
-    package's bench data) featurized at bucket 128 through the Featurizer."""
+    package's bench data) featurized at bucket 128 through the Featurizer
+    (a pinyin pretraining config's: ``featurize_pho_pretrain``)."""
     from realise_tpu_torch.data.dataset import synthetic_dataset
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
@@ -1291,23 +1308,28 @@ def train_batches(cfg, n, batch_size, seed):
     feat = Featurizer(tok, cfg)
     data = synthetic_dataset(tok, num_examples=n * batch_size, min_len=20,
                              max_len=100, seed=seed)
-    return [feat.device_batch(feat.featurize(
-        data[i * batch_size:(i + 1) * batch_size], seq_len=128))
-        for i in range(n)]
+    def featurize(examples):
+        if cfg.fusion == "pretrain":
+            return feat.featurize_pho_pretrain(examples)  # bucket 128: the config's
+        return feat.featurize(examples, seq_len=128)
+
+    return [feat.device_batch(featurize(data[i * batch_size:(i + 1) * batch_size]))
+            for i in range(n)]
 
 
 _GLYPHS = {}
 
 
 def seeded_model(cfg, seed):
-    """Seeded weights, the procedural glyph table of the synthetic vocab
-    (non-CJK tokens share the zero image, as in the real vocab; built once
-    per font set) and its pinyin tables: the tables the training CLI
-    installs, as the preset has them."""
+    """Seeded weights (``build_model``: a pretraining stage too), the
+    procedural glyph table of the synthetic vocab (non-CJK tokens share the
+    zero image, as in the real vocab; built once per font set) and its
+    pinyin tables: the tables the training CLI installs, as the preset has
+    them."""
     import torch
 
     from realise_tpu_torch.data.features import Featurizer
-    from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.models.realise import build_model
     from realise_tpu_torch.text.glyphs import build_glyph_table
     from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
     from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
@@ -1316,7 +1338,7 @@ def seeded_model(cfg, seed):
 
     vocab = build_synthetic_vocab(size=cfg.vocab_size,
                                   cjk_chars=REAL_VOCAB_CJK_CHARS)
-    model = Realise(cfg, generator=torch.Generator().manual_seed(seed))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     if cfg.with_res:
         fonts = (cfg.num_fonts, cfg.use_traditional_font)
         if fonts not in _GLYPHS:
@@ -1370,10 +1392,14 @@ def step_split(trainer, batch, label, card):
     import torch
 
     model = trainer.model
-    b, s = np.asarray(batch["src_idx"]).shape
+    if "char_idx" in batch:  # res-pretrain: (N,) chars, convolved as they come
+        b, s = len(batch["char_idx"]), 1
+    else:
+        b, s = np.asarray(batch["src_idx"]).shape
     conv_rows = gru_rows = "none"
-    if trainer.per_token_streams:
-        conv_rows = gru_rows = f"{b * s}"
+    if trainer.per_token_streams or "char_idx" in batch:
+        conv_rows = f"{b * s}" if model.cfg.with_res else "none"
+        gru_rows = f"{b * s}" if model.cfg.with_pho else "none"
     else:
         if model.cfg.with_res:
             rows = model.conv_rows(batch["src_idx"])["res_rows"]
@@ -2079,6 +2105,313 @@ def presets(device, card):
     return launches, rows
 
 
+# ------------------------------------------------------ the pretraining stages
+def pretrain_config(model_type):
+    from realise_tpu_torch.config import config_for
+
+    return config_for(model_type, vocab_size=21128, dtype="bfloat16")
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """``Trainer.train_step`` and ``Trainer.fit`` of the CLIs the phase
+    drives, recorded: each step's loss (read back) and the launches of the
+    four train kernels in it, and the model's state dict as ``fit`` starts."""
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.training.trainer import Trainer
+
+    rec = {"steps": [], "starts": []}
+    step, fit = Trainer.train_step, Trainer.fit
+
+    def train_step(self, batch):
+        before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+        loss = step(self, batch)
+        rec["steps"].append((float(loss), [fn.launches - n for fn, n in
+                                           zip(tbt.KERNEL_WRAPPERS, before)]))
+        return loss
+
+    def recording_fit(self, batches, **kw):
+        rec["starts"].append({k: v.clone()
+                              for k, v in self.model.state_dict().items()})
+        return fit(self, batches, **kw)
+
+    Trainer.train_step, Trainer.fit = train_step, recording_fit
+    try:
+        yield rec
+    finally:
+        Trainer.train_step, Trainer.fit = step, fit
+
+
+def check_steps(label, rec, steps, per_step):
+    """``steps`` recorded steps, each loss finite, each step ``per_step``
+    launches of every train kernel."""
+    import math
+
+    losses = [loss for loss, _ in rec["steps"]]
+    log(f"{label}: losses {losses}, train kernel launches per step "
+        f"{[n for _, n in rec['steps']]}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        fail(f"{label}: {len(losses)} steps (expected {steps}), losses {losses}")
+    if any(n != [per_step] * 4 for _, n in rec["steps"]):
+        fail(f"{label}: train kernels launched {[n for _, n in rec['steps']]} "
+             f"times, expected {per_step} each per step")
+    return losses
+
+
+def pretraining(device, card):
+    """Phase 12: the pretraining stages and the merge at full width (bf16,
+    V=21128, the published dropout, seeded random weights, procedural
+    glyphs, --synthetic data). ``cli/pretrain_pho`` for 4 updates at its
+    published 64 x 2 (4 x 2 launches of each train kernel an update, the
+    dev token accuracy with 4 serving launches a batch); ``cli/pretrain_res``
+    for 4 steps at 512 and its accuracy over every CJK char of the vocab;
+    ``pho2-res-pretrain`` through the Trainer, 2 steps at 64, and one eval
+    batch; the float32 kernel-vs-plain training check of phase 8 on
+    pho2-pretrain and pho2-res-pretrain; ``cli/merge`` of the two stages
+    onto a seeded arch3 checkpoint, then ``cli/train --max_steps 2
+    --do_eval`` from ``--init_ckpt merged`` and from ``--init_ckpt base
+    --pho_ckpt --res_ckpt`` (the same initial bits and loss traces) and
+    ``cli/test`` on the merged run; then a timed step of each stage (host
+    clock, CUDA events, profiled kernels, peak memory), the merge's seconds
+    and the two evals' rates. Returns the kernels' launches on the phase's
+    path (the CLIs and the counted Trainer steps, not the checks and
+    timings)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.cli import merge as cli_merge
+    from realise_tpu_torch.cli import pretrain_pho, pretrain_res
+    from realise_tpu_torch.cli import test as cli_test
+    from realise_tpu_torch.cli import train as cli_train
+    from realise_tpu_torch.data.dataset import synthetic_dataset
+    from realise_tpu_torch.data.features import Featurizer
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+    from realise_tpu_torch.training.checkpoint import (list_checkpoints,
+                                                       load_checkpoint,
+                                                       save_checkpoint)
+    from realise_tpu_torch.training.trainer import Trainer
+
+    started = time.perf_counter()
+    serving = (bb.attention_block, bb.ffn_block)
+    wrappers = serving + tuple(tbt.KERNEL_WRAPPERS)
+    for fn in wrappers:
+        fn.launches = 0
+    launches = dict.fromkeys((fn.__name__ for fn in wrappers), 0)
+
+    def counted(label, fn, serving_want):
+        """Run fn; add its launches to the phase's path and check the
+        serving kernels' count."""
+        before = {f.__name__: f.launches for f in wrappers}
+        t = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t
+        got = {f.__name__: f.launches - before[f.__name__] for f in wrappers}
+        for name, n in got.items():
+            launches[name] += n
+        if [got[f.__name__] for f in serving] != [serving_want] * 2:
+            fail(f"{label}: serving kernels launched "
+                 f"{[got[f.__name__] for f in serving]} times, expected "
+                 f"{serving_want} each")
+        log(f"{label}: {dt:.2f} s, launches {got}")
+        return out
+
+    pho_cfg, res_cfg = pretrain_config("pho2-pretrain"), pretrain_config("res-pretrain")
+    layers = pho_cfg.pho_num_layers
+    tok = WordPieceTokenizer(vocab_to_dict(build_synthetic_vocab(
+        size=21128, cjk_chars=REAL_VOCAB_CJK_CHARS)))
+    feat = Featurizer(tok, pho_cfg)
+    char_ids = np.nonzero(feat.cjk_token_mask())[0]
+    dev = synthetic_dataset(tok, num_examples=1024, min_len=20, max_len=100,
+                            seed=SEED + 702)  # the timed evals' sentences
+
+    def timed_token_accuracy(label, trainer):
+        sync(device)
+        t = time.perf_counter()
+        acc = pretrain_pho.token_accuracy(trainer, dev, feat)
+        dt = time.perf_counter() - t
+        log(f"pretrain: {label} token accuracy of {len(dev)} sentences at "
+            f"batch 64 {acc}: {dt:.3f} s, {len(dev) / dt:.1f} sentences/s "
+            f"[{card}]")
+        return f"{len(dev) / dt:.1f} sentences/s"
+
+    common = ["--synthetic", "--dtype", "bfloat16", "--seed", str(SEED)]
+    rows = {}
+    with tempfile.TemporaryDirectory() as root:
+        d = {n: os.path.join(root, n) for n in ("pho", "res", "base", "merged",
+                                                "ft_merged", "ft_overlay")}
+        # 1. pretrain_pho.sh: 4 updates of 64 x 2 (its published flags), the
+        # dev set's 64 sentences in one eval batch of 64.
+        with recorded_steps() as rec:
+            if counted("pretrain: cli/pretrain_pho 4 updates of 64 x 2",
+                       lambda: pretrain_pho.main(common + [
+                           "--output_dir", d["pho"], "--max_steps", "4",
+                           "--logging_steps", "1"]), layers) != 0:
+                fail("pretrain: cli/pretrain_pho failed")
+        pho_losses = check_steps("pretrain: pho2-pretrain", rec, 4, 2 * layers)
+        with open(os.path.join(d["pho"], "dev_results.json")) as f:
+            pho_dev = json.load(f)
+        log(f"pretrain: pho2-pretrain dev {pho_dev}")
+        if not all(math.isfinite(v) for v in pho_dev.values()):
+            fail(f"pretrain: pho2-pretrain dev results {pho_dev}")
+
+        # 2. pretrain_res.sh: 4 steps of 512, the accuracy over every char.
+        with recorded_steps() as rec:
+            if counted("pretrain: cli/pretrain_res 4 steps of 512",
+                       lambda: pretrain_res.main(common + [
+                           "--output_dir", d["res"], "--max_steps", "4",
+                           "--logging_steps", "1"]), 0) != 0:
+                fail("pretrain: cli/pretrain_res failed")
+        res_losses = check_steps("pretrain: res-pretrain", rec, 4, 0)
+        with open(os.path.join(d["res"], "dev_results.json")) as f:
+            res_dev = json.load(f)
+        log(f"pretrain: res-pretrain accuracy over {len(char_ids)} chars "
+            f"{res_dev}")
+        if not 0.0 <= res_dev["accuracy"] <= 1.0:
+            fail(f"pretrain: res-pretrain dev results {res_dev}")
+
+        # 3. pho2-res-pretrain through the Trainer: 2 steps at 64, one eval.
+        cfg = pretrain_config("pho2-res-pretrain")
+        model = seeded_model(cfg, SEED + 500)
+        batches = train_batches(cfg, 3, 64, SEED + 501)
+        trainer = Trainer(cfg, model, learning_rate=5e-5, warmup_steps=2,
+                          total_steps=100, max_grad_norm=1.0, device=device,
+                          seed=SEED)
+        with recorded_steps() as rec:
+            counted("pretrain: pho2-res-pretrain 2 Trainer steps at 64",
+                    lambda: [trainer.train_step(b) for b in batches[:2]], 0)
+        check_steps("pretrain: pho2-res-pretrain", rec, 2, layers)
+        out = counted("pretrain: pho2-res-pretrain eval batch of 64",
+                      lambda: trainer.eval_step(batches[2]), layers)
+        if not math.isfinite(out["loss"]):
+            fail(f"pretrain: pho2-res-pretrain eval loss {out['loss']}")
+        rows["pho2-res-pretrain"] = dict(
+            step_split(trainer, batches[2], "pho2-res-pretrain", card),
+            params=sum(p.numel() for p in trainer.model.parameters()),
+            batch="64", layers=layers,
+            eval=timed_token_accuracy("pho2-res-pretrain", trainer))
+        del trainer, model
+        torch.cuda.empty_cache()
+
+        # 4. The float32 kernel-vs-plain training check of phase 8.
+        for name in ("pho2-pretrain", "pho2-res-pretrain"):
+            check_train_paths(device, pretrain_config(name))
+        torch.cuda.empty_cache()
+
+        # 5. merge.py onto a seeded arch3 checkpoint, then fine-tuning from
+        # the merged checkpoint and from the overlay flags.
+        base_cfg = preset_config(ARCH3, {})
+        base_ckpt = save_checkpoint(d["base"], 0, seeded_model(
+            base_cfg, SEED + 600).state_dict(), base_cfg)
+        pho_ckpt, res_ckpt = (list_checkpoints(d[n])[-1][1] for n in ("pho", "res"))
+        sync(device)
+        t = time.perf_counter()
+        if cli_merge.main(["--base_ckpt", d["base"], "--pho_ckpt", d["pho"],
+                           "--res_ckpt", d["res"], "--output_dir",
+                           d["merged"]]) != 0:
+            fail("pretrain: cli/merge failed")
+        merge_s = time.perf_counter() - t
+        merged_ckpt = list_checkpoints(d["merged"])[-1][1]
+        ft = common + ["--max_steps", "2", "--do_train", "--do_eval",
+                       "--per_device_train_batch_size", "8",
+                       "--eval_batch_size", "32", "--logging_steps", "1"]
+        eval_batches = -(-64 // 32)  # the dev set's 64 sentences
+        arch3_layers = encoder_layers(base_cfg)
+        with recorded_steps() as rec:
+            for name, extra in (
+                    ("ft_merged", ["--init_ckpt", merged_ckpt]),
+                    ("ft_overlay", ["--init_ckpt", base_ckpt, "--pho_ckpt",
+                                    pho_ckpt, "--res_ckpt", res_ckpt])):
+                if counted(f"pretrain: cli/train {' '.join(extra[::2])}",
+                           lambda: cli_train.main(ft + ["--output_dir", d[name]]
+                                                  + extra),
+                           arch3_layers * eval_batches) != 0:
+                    fail(f"pretrain: cli/train {extra} failed")
+        starts, steps = rec["starts"], rec["steps"]
+        merged = load_checkpoint(merged_ckpt, map_location=device)
+        differ = [k for k, v in merged.items()
+                  if not (torch.equal(starts[0][k], v)
+                          and torch.equal(starts[1][k], v))]
+        trace = [loss for loss, _ in steps]
+        log(f"pretrain: merged checkpoint {merge_s:.3f} s; fine-tuning from it "
+            f"and from the overlay flags: {len(merged) - len(differ)} of "
+            f"{len(merged)} initial tensors equal bits; loss traces "
+            f"{trace[:2]} / {trace[2:]}")
+        check_steps("pretrain: fine-tuning runs", rec, 4, arch3_layers)
+        if differ or set(starts[0]) != set(merged) or trace[:2] != trace[2:]:
+            fail(f"pretrain: the merged and the overlay runs differ: "
+                 f"{differ[:8]}, traces {trace}")
+        del starts, merged, rec
+        if counted("pretrain: cli/test on the merged run",
+                   lambda: cli_test.main(["--ckpt_dir", d["ft_merged"],
+                                          "--synthetic"]),
+                   arch3_layers * eval_batches) != 0:
+            fail("pretrain: cli/test failed")
+        with open(os.path.join(d["ft_merged"], "test_output",
+                               "test_results.json")) as f:
+            scores = json.load(f)
+        if not all(math.isfinite(v) for v in scores.values()):
+            fail(f"pretrain: cli/test scores {scores}")
+        log("pretrain: cli/test " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(scores.items())))
+    torch.cuda.empty_cache()
+
+    # 6. A timed step of each stage and the evals' rates.
+    model = seeded_model(pho_cfg, SEED + 700)
+    trainer = Trainer(pho_cfg, model, learning_rate=5e-5, warmup_steps=2,
+                      total_steps=100, max_grad_norm=1.0, grad_accum_steps=2,
+                      device=device, seed=SEED)
+    rows["pho2-pretrain"] = dict(
+        step_split(trainer, train_batches(pho_cfg, 1, 128, SEED + 701)[0],
+                   "pho2-pretrain", card),
+        params=sum(p.numel() for p in model.parameters()), batch="64 x 2",
+        layers=layers)
+    rows["pho2-pretrain"]["eval"] = timed_token_accuracy("pho2-pretrain",
+                                                         trainer)
+    del trainer, model
+    model = seeded_model(res_cfg, SEED + 800)
+    trainer = Trainer(res_cfg, model, learning_rate=1e-3, warmup_steps=0,
+                      total_steps=100, max_grad_norm=1.0, device=device,
+                      seed=SEED)
+    rng = np.random.default_rng(SEED + 801)
+    rows["res-pretrain"] = dict(
+        step_split(trainer, {"char_idx": char_ids[rng.permutation(
+            len(char_ids))[:512]]}, "res-pretrain", card),
+        params=sum(p.numel() for p in model.parameters()), batch="512",
+        layers=0)
+    sync(device)
+    t = time.perf_counter()
+    acc = pretrain_res.char_accuracy(trainer, char_ids, 512)
+    dt = time.perf_counter() - t
+    rows["res-pretrain"]["eval"] = f"{len(char_ids) / dt:.1f} chars/s"
+    log(f"pretrain: res-pretrain accuracy over {len(char_ids)} chars at batch "
+        f"512 {acc:.4f}: {dt:.3f} s, {len(char_ids) / dt:.1f} chars/s [{card}]")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    log(f"pretrain: launches on the phase's path {launches} (with the checks "
+        f"and timing runs {({fn.__name__: fn.launches for fn in wrappers})})")
+    if not all(launches.values()):
+        fail(f"pretrain: a kernel was never launched: {launches}")
+    log("pretraining table: stage | encoder layers | parameters | batch | "
+        "step ms, host | step ms, events | kernels ms | peak GiB | eval")
+    for name in ("pho2-pretrain", "res-pretrain", "pho2-res-pretrain"):
+        r = rows[name]
+        log(f"  | {name} | {r['layers']} | {r['params']} | {r['batch']} | "
+            f"{r['host_ms']:.3f} | {r['step_ms']:.3f} | {r['kernel_ms']:.3f} | "
+            f"{r['peak_gib']:.2f} | {r['eval']} |")
+    log(f"pretrain: merge {merge_s:.3f} s; losses pho2-pretrain {pho_losses}, "
+        f"res-pretrain {res_losses}; phase {time.perf_counter() - started:.1f} s "
+        f"[{card}]")
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2134,6 +2467,9 @@ def main() -> int:
     resume(device, cfg, card)
     torch.cuda.empty_cache()
     presets(device, card)
+    torch.cuda.empty_cache()
+    for name, n in pretraining(device, card).items():
+        launches[name] += n
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"
     sources = {"attention_block": "realise_tpu/ops/pallas/bert_block.py:67",

@@ -43,12 +43,9 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
                       max_position_embeddings=64)
 
 # Flags of the JAX CLIs whose parts are not ported yet → (how the parser
-# takes them, the ROADMAP queue A item that ports them): the pretraining
-# stages and the merge (7b), multi-GPU data parallelism (6), and length
-# buckets and step traces in training (9).
+# takes them, the ROADMAP queue A item that ports them): multi-GPU data
+# parallelism (6), and length buckets and step traces in training (9).
 UNPORTED: Dict[str, Tuple[dict, str]] = {
-    "--pho_ckpt": ({}, "7b (pretraining stages and the merge)"),
-    "--res_ckpt": ({}, "7b (pretraining stages and the merge)"),
     "--mesh": ({}, "6 (multi-GPU data parallel)"),
     "--distributed": (dict(action="store_true"), "6 (multi-GPU data parallel)"),
     "--length_buckets": ({}, "9 (length buckets and step traces in training)"),

@@ -1,0 +1,132 @@
+"""Glyph-encoder pretraining CLI of the port: ``realise_tpu.cli.pretrain_res``
+(the pretrain_res.sh equivalent) on one device.
+
+Objective (reference: src/run_res_pretrain.py, pretrain_res.sh:3-13): the
+dataset is every single-Chinese-char entry of the vocabulary
+(run_res_pretrain.py:45-54), and the CharResNet classifies each char from
+its glyph image stack (src/models.py:1473-1488). The flags and their
+defaults are the JAX CLI's: batch 512 (at most the number of chars), lr
+1e-3, no warmup, 8 epochs of ``chars // batch`` steps unless
+``--max_steps``. The run saves a port checkpoint (every ``--save_steps`` if
+set, and at the end) and writes the classification accuracy over every
+char to ``dev_results.json``. Runs on CUDA unless told otherwise.
+
+Example (smoke):
+    python -m realise_tpu_torch.cli.pretrain_res --synthetic --tiny \
+        --num_train_epochs 1 --device cpu --output_dir /tmp/res
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+from realise_tpu_torch.cli.common import (
+    add_common_args,
+    build_config,
+    build_glyphs,
+    build_tokenizer,
+    logger,
+    reject_unported,
+    setup_logging,
+    write_json,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_common_args(p)
+    p.add_argument("--per_device_train_batch_size", type=int, default=512)
+    p.add_argument("--learning_rate", type=float, default=1e-3)
+    p.add_argument("--num_train_epochs", type=float, default=8)
+    p.add_argument("--max_steps", type=int, default=-1)
+    p.add_argument("--logging_steps", type=int, default=50)
+    p.add_argument("--save_steps", type=int, default=0)
+    return p
+
+
+def char_accuracy(trainer, char_ids: np.ndarray, batch_size: int) -> float:
+    """Classification accuracy over every char (run_res_pretrain.py:229-235):
+    the last batch is padded to ``batch_size`` with its last char and only
+    its real rows are scored (the JAX CLI's rule, pretrain_res.py:106-121)."""
+    correct = 0
+    for i in range(0, len(char_ids), batch_size):
+        chunk = char_ids[i:i + batch_size]
+        n = len(chunk)
+        if n < batch_size:
+            chunk = np.concatenate([chunk, np.repeat(chunk[-1:],
+                                                     batch_size - n)])
+        preds = trainer.eval_step({"char_idx": chunk})["pred_idx"]
+        correct += int((preds[:n] == chunk[:n]).sum())
+    return correct / max(len(char_ids), 1)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    args.model_type = "res-pretrain"
+    reject_unported(args)
+    setup_logging()
+    from realise_tpu_torch.data.features import Featurizer
+    from realise_tpu_torch.device import resolve_device
+    from realise_tpu_torch.models.realise import RealisePretrain
+    from realise_tpu_torch.training.checkpoint import save_checkpoint
+    from realise_tpu_torch.training.trainer import Trainer
+
+    device = resolve_device(args.device)  # raises without CUDA by default
+    tokenizer = build_tokenizer(args)
+    cfg = build_config(args, len(tokenizer))
+    featurizer = Featurizer(tokenizer, cfg)
+    model = RealisePretrain(cfg,
+                            generator=torch.Generator().manual_seed(args.seed))
+    model.install_glyphs(build_glyphs(args, tokenizer, cfg))
+
+    char_ids = np.nonzero(featurizer.cjk_token_mask())[0].astype(np.int64)
+    logger.info("res-pretrain over %d chars", len(char_ids))
+    batch_size = min(args.per_device_train_batch_size, len(char_ids))
+    if batch_size <= 0:
+        raise SystemExit(f"res-pretrain needs at least one CJK vocab char "
+                         f"(have {len(char_ids)}); check the vocab file")
+    steps_per_epoch = max(len(char_ids) // batch_size, 1)
+    total = (args.max_steps if args.max_steps > 0
+             else int(steps_per_epoch * args.num_train_epochs))
+    trainer = Trainer(cfg, model, learning_rate=args.learning_rate,
+                      warmup_steps=0, total_steps=max(total, 1),
+                      use_kernels=False if args.no_kernels else None,
+                      seed=args.seed, device=device)
+
+    rng = np.random.default_rng(args.seed)
+
+    def batches():
+        while True:
+            order = rng.permutation(len(char_ids))
+            for i in range(0, len(order) - batch_size + 1, batch_size):
+                yield {"char_idx": char_ids[order[i:i + batch_size]]}
+
+    training_args = dict(vars(args))
+
+    def save_fn(step, tr):
+        path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
+                               cfg, trainer_state=tr.state_dict(),
+                               training_args=training_args)
+        logger.info("saved checkpoint %s", path)
+
+    summary = trainer.fit(batches(), max_steps=total,
+                          logging_steps=args.logging_steps,
+                          save_steps=args.save_steps,
+                          save_fn=save_fn if args.save_steps else None)
+    logger.info("train summary: %s", summary)
+    save_fn(trainer.step, trainer)
+
+    acc = char_accuracy(trainer, char_ids, batch_size)
+    logger.info("res-pretrain accuracy: %.4f", acc)
+    write_json(os.path.join(args.output_dir, "dev_results.json"),
+               {"accuracy": acc})
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

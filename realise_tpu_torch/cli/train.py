@@ -15,8 +15,11 @@ optimizer's state, the step and the dropout generator's state
 ``--resume`` continues the run from the newest checkpoint in
 ``--output_dir``: step k trains on batch k and draws step k's dropout masks,
 as the uninterrupted run would. ``--init_ckpt`` starts from a checkpoint's
-weights with a fresh optimizer at step 0. Runs on CUDA with the fused
-kernels unless told otherwise.
+weights with a fresh optimizer at step 0 (a ``cli/merge`` checkpoint, the
+reference's recipe); ``--pho_ckpt``/``--res_ckpt`` then overlay the
+pretraining stages' encoders on the initial weights as ``cli/merge`` does
+(``training/merge.merge_state_dicts``), the same bits in one step. Runs on
+CUDA with the fused kernels unless told otherwise.
 
 Example (smoke, no corpus assets):
     python -m realise_tpu_torch.cli.train --synthetic --tiny --max_steps 2 \
@@ -64,6 +67,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_ckpt", default=None,
                    help="checkpoint dir to initialize from (e.g. merged "
                         "pretrain, the merge.py equivalent)")
+    p.add_argument("--pho_ckpt", default=None,
+                   help="pho2-pretrain checkpoint dir to overlay at init")
+    p.add_argument("--res_ckpt", default=None,
+                   help="res-pretrain checkpoint dir to overlay at init")
     p.add_argument("--per_device_train_batch_size", type=int, default=16)
     p.add_argument("--eval_batch_size", type=int, default=32)
     p.add_argument("--gradient_accumulation_steps", type=int, default=1)
@@ -104,6 +111,7 @@ def main(argv=None) -> int:
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.training.merge import merge_state_dicts
     from realise_tpu_torch.training.checkpoint import (
         list_checkpoints,
         load_checkpoint,
@@ -128,6 +136,13 @@ def main(argv=None) -> int:
         # are the featurizer's and stay.
         model.load_state_dict(load_checkpoint(args.init_ckpt))
         logger.info("initialized from %s", args.init_ckpt)
+    if args.pho_ckpt or args.res_ckpt:
+        model.load_state_dict(merge_state_dicts(
+            model.state_dict(),
+            pho=load_checkpoint(args.pho_ckpt) if args.pho_ckpt else None,
+            res=load_checkpoint(args.res_ckpt) if args.res_ckpt else None))
+        logger.info("overlaid the pretrained encoders of %s",
+                    [c for c in (args.pho_ckpt, args.res_ckpt) if c])
 
     train_data = load_dataset(args, tokenizer, args.train_file,
                               num_synthetic=256, seed=args.seed)

@@ -14,7 +14,9 @@ them. The host batch holds numpy arrays in the reference batch contract
     pho1_idx         (B, S, 3) int32   (pho1 models)
 
 plus the host-only fields (id, src, tgt, tokens_size, lengths) that the text
-reconstruction reads. The pinyin features are a gather of the vocab tables
+reconstruction reads. The glyph pretraining's batches are ``char_idx`` (N,)
+alone; the pinyin pretraining's come from :meth:`Featurizer.
+featurize_pho_pretrain`. The pinyin features are a gather of the vocab tables
 on ``src_idx`` after either featurizer. :func:`to_device` turns the device
 part into int64 tensors, the conv stream's distinct rows of a call
 (``res_rows``, ``res_inverse``, ``Realise.conv_rows``) too. Raw sentences
@@ -32,10 +34,10 @@ import torch
 
 from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.text.pinyin import Pinyin1Convertor, Pinyin2Convertor
-from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+from realise_tpu_torch.text.tokenizer import WordPieceTokenizer, is_chinese_char
 
 DEVICE_KEYS = ("src_idx", "tgt_idx", "masks", "loss_masks", "pho_idx",
-               "pho_lens", "pho1_idx", "res_rows", "res_inverse")
+               "pho_lens", "pho1_idx", "char_idx", "res_rows", "res_inverse")
 
 
 def make_example(sid: str, src: str, tgt: str, tokenizer: WordPieceTokenizer) -> Dict:
@@ -80,6 +82,7 @@ class Featurizer:
         self._pho2_table: Optional[np.ndarray] = None
         self._pho2_lens: Optional[np.ndarray] = None
         self._pho1_table: Optional[np.ndarray] = None
+        self._cjk_mask: Optional[np.ndarray] = None
 
     def pho2_tables(self):
         """(V, P) pinyin char ids + (V,) lens for every vocab token."""
@@ -99,11 +102,39 @@ class Featurizer:
                                           dtype=np.int32)
         return self._pho1_table
 
+    def cjk_token_mask(self) -> np.ndarray:
+        """(V,) bool: the vocab tokens that are single Chinese chars
+        (memoized: the pinyin pretraining's loader reads it every batch)."""
+        if self._cjk_mask is None:
+            vocab = self.tokenizer.convert_ids_to_tokens(
+                range(len(self.tokenizer)))
+            self._cjk_mask = np.asarray(
+                [len(t) == 1 and is_chinese_char(ord(t)) for t in vocab], bool)
+        return self._cjk_mask
+
     def featurize(self, examples: Sequence[Dict], with_labels: bool = True,
                   seq_len: Optional[int] = None) -> Dict:
         """Examples → fixed-shape arrays + passthrough fields.
 
         ``seq_len`` overrides the padded length (length buckets)."""
+        return self._add_pho(self._arrays(examples, with_labels, seq_len))
+
+    def featurize_pho_pretrain(self, examples: Sequence[Dict]) -> Dict:
+        """The pinyin pretraining's features (``featurize_pho_pretrain`` of
+        the JAX package; reference run_pretrain.py:56-69): the model recovers
+        each char from its pinyin alone, so the inputs are the *target* ids,
+        the loss covers the Chinese chars among the loss positions, and the
+        pinyin features are gathered for the new ``src_idx``."""
+        batch = self._arrays(examples, with_labels=True)
+        batch["src_idx"] = batch["tgt_idx"].copy()
+        cjk = self.cjk_token_mask()
+        batch["loss_masks"] = (batch["loss_masks"].astype(bool)
+                               & cjk[batch["tgt_idx"]]).astype(np.int32)
+        return self._add_pho(batch)
+
+    def _arrays(self, examples: Sequence[Dict], with_labels: bool = True,
+                seq_len: Optional[int] = None) -> Dict:
+        """The id, mask and passthrough fields of :meth:`featurize`."""
         cfg = self.cfg
         s = seq_len or cfg.max_seq_length
         b = len(examples)
@@ -138,7 +169,7 @@ class Featurizer:
         }
         if with_labels:
             batch["tgt_idx"] = tgt_idx
-        return self._add_pho(batch)
+        return batch
 
     def _add_pho(self, batch: Dict) -> Dict:
         """The pinyin features of ``batch['src_idx']``: a table gather."""

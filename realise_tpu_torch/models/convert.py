@@ -1,8 +1,9 @@
 """Carry JAX weights across: the JAX package's (params, state) → a port state dict.
 
-The inverse of ``realise_tpu/models/torch_import.py`` for every fine-tuning
-preset's tree (``_build_realise`` of the JAX package, models/realise.py:
-276-327). It takes the nested dicts of numpy arrays that the JAX package's
+The inverse of ``realise_tpu/models/torch_import.py`` for every preset's
+tree: the fine-tuning presets' (``_build_realise`` of the JAX package,
+models/realise.py:276-327) and the pretraining stages' (``_build_pretrain``,
+:966-988). It takes the nested dicts of numpy arrays that the JAX package's
 ``load_checkpoint`` returns and imports nothing of JAX:
 
 * encoder layers stacked along a leading axis are unstacked into
@@ -18,7 +19,11 @@ preset's tree (``_build_realise`` of the JAX package, models/realise.py:
   merged presets), ``fusion.gate_net`` or ``fusion.integrate``, and the head
   to ``classifier.bias`` (tied) or ``cls.predictions.*`` (MLM: the
   decoder's (H, V) kernel becomes its (V, H) weight, its bias
-  ``cls.predictions.bias``).
+  ``cls.predictions.bias``);
+* a pretraining stage has no semantic BERT; its pho BERT is ``pho_model``
+  (``pho2-pretrain``) or ``pho_res_model`` (``pho2-res-pretrain``), its MLM
+  head ``cls2.predictions.*`` and ``res-pretrain``'s linear head
+  ``head.classifier`` is ``cls3``.
 
 The deduplicated tables in the state (``res_uniq_*``, ``pho_*``) are derived
 from the glyphs and the vocabulary; the port derives its own
@@ -112,10 +117,13 @@ def char_resnet_state_dict(params: Mapping, state: Mapping,
 
 def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
                         cfg: RealiseConfig) -> Dict[str, torch.Tensor]:
-    """JAX (params, state) of any fine-tuning preset → a state dict for
-    ``Realise(cfg)``."""
+    """JAX (params, state) of any preset → a state dict for
+    ``build_model(cfg)`` (``Realise`` or ``RealisePretrain``)."""
+    pretrain = cfg.fusion == "pretrain"
     sd: Dict[str, torch.Tensor] = {}
-    sd.update(bert_state_dict(params["bert"], cfg.num_hidden_layers, "bert."))
+    if not pretrain:
+        sd.update(bert_state_dict(params["bert"], cfg.num_hidden_layers,
+                                  "bert."))
 
     if "pho" in params:
         pho = params["pho"]
@@ -126,8 +134,9 @@ def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
             sd["pho_gru.weight_hh_l0"] = _t(np.asarray(gru["w_hh"]).T)
             sd["pho_gru.bias_ih_l0"] = _t(gru["b_ih"])
             sd["pho_gru.bias_hh_l0"] = _t(gru["b_hh"])
-        sd.update(bert_state_dict(pho["model"], cfg.pho_num_layers,
-                                  "pho_model."))
+        pho_bert = ("pho_res_model." if pretrain and cfg.with_res
+                    else "pho_model.")
+        sd.update(bert_state_dict(pho["model"], cfg.pho_num_layers, pho_bert))
 
     if "res" in params:
         sd.update(char_resnet_state_dict(params["res"]["resnet"],
@@ -142,8 +151,10 @@ def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
         sd.update(bert_state_dict(params["output_block"], cfg.out_num_layers,
                                   "output_block."))
     head = params["head"]
-    if cfg.head == "mlm":
-        pre = "cls.predictions."
+    if cfg.head == "linear":
+        _linear(sd, "cls3", head["classifier"])
+    elif cfg.head == "mlm":
+        pre = "cls2.predictions." if pretrain else "cls.predictions."
         _linear(sd, pre + "transform.dense", head["transform"])
         _layer_norm(sd, pre + "transform.LayerNorm", head["layer_norm"])
         sd[pre + "decoder.weight"] = _t(np.asarray(head["decoder"]["kernel"]).T)

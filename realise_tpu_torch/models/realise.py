@@ -31,7 +31,9 @@ state_dict_from_jax` carries JAX weights across and the JAX importer reads a
 port state dict back. Serving swaps the per-token GRU and conv streams for
 (V, H) tables that depend only on the token id
 (:func:`precompute_inference_tables`). The pretraining stages
-(``fusion="pretrain"``) are not ported yet: :func:`unported_reason`.
+(``fusion="pretrain"``: ``pho2-pretrain``, ``res-pretrain``,
+``pho2-res-pretrain``) are :class:`RealisePretrain`, on the same stream
+modules; :func:`build_model` picks the class of a config.
 
 A model starts in eval mode, the deterministic forward. In training mode
 (``model.train()``) the forward is the training step's:
@@ -93,9 +95,10 @@ from realise_tpu_torch.ops.resnet import CharResNet
 class _MaskedCE(torch.autograd.Function):
     """(sum of NLL over masked positions, their count) in float32, with the
     JAX package's hand VJP (models/realise.py:599-678): the logits are
-    ``round(logits + bias rounded to their dtype)``, the gradient of the
-    logits is emitted in their dtype and the bias gradient is the float32
-    column sum of that rounded gradient."""
+    ``round(logits + bias rounded to their dtype)`` (the logits as they are
+    without a bias), the gradient of the logits is emitted in their dtype
+    and the bias gradient is the float32 column sum of that rounded
+    gradient."""
 
     @staticmethod
     def forward(ctx, logits, bias, labels, mask):
@@ -112,18 +115,24 @@ class _MaskedCE(torch.autograd.Function):
         p = torch.exp(_biased32(logits, bias) - logz[:, None])
         p[torch.arange(p.shape[0], device=p.device), labels] -= 1.0
         dlogits = (p * (dsum * m)[:, None]).to(logits.dtype)
-        return dlogits, dlogits.float().sum(0), None, None
+        dbias = None if bias is None else dlogits.float().sum(0)
+        return dlogits, dbias, None, None
 
 
-def _biased32(logits: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+def _biased32(logits: torch.Tensor,
+              bias: Optional[torch.Tensor]) -> torch.Tensor:
+    if bias is None:
+        return logits.float()
     b32 = bias.to(logits.dtype).float()
     return (logits.float() + b32).to(logits.dtype).float()
 
 
 def masked_cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
-                             loss_mask: torch.Tensor, bias: torch.Tensor):
-    """(B, S, V) unbiased logits, (V,) float32 head bias → (loss sum, count)
-    over the positions where ``loss_mask`` is 1."""
+                             loss_mask: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None):
+    """(B, S, V) unbiased logits, (V,) float32 head bias (None: the logits
+    are the biased ones) → (loss sum, count) over the positions where
+    ``loss_mask`` is 1."""
     v = logits.shape[-1]
     return _MaskedCE.apply(logits.reshape(-1, v), bias,
                            labels.reshape(-1).long(), loss_mask.reshape(-1))
@@ -187,18 +196,12 @@ def no_span(name: str):
     return contextlib.nullcontext()
 
 
-def unported_reason(cfg: RealiseConfig) -> Optional[str]:
-    """Why the port cannot build this config yet (None = it can): the
-    pretraining stages, whose objectives (``apply_pretrain`` of the JAX
-    package) are ROADMAP queue A item 7b."""
-    if cfg.fusion == "pretrain" or cfg.head == "linear":
-        return (f"{cfg.model_type!r} is a pretraining stage (fusion "
-                f"{cfg.fusion!r}, head {cfg.head!r}); the pretraining "
-                f"objectives are not ported yet (ROADMAP queue A item 7b)")
-    return None
-
-
 def _check_wiring(cfg: RealiseConfig) -> None:
+    if cfg.fusion == "pretrain":
+        raise ValueError(
+            f"{cfg.model_type!r} is a pretraining stage (fusion 'pretrain'): "
+            f"RealisePretrain builds it (build_model picks the class by "
+            f"config)")
     for what, value, known in (
             ("pho_encoder", cfg.pho_encoder, ("none", "pho1", "pho2")),
             ("res_encoder", cfg.res_encoder, ("none", "resnet", "resnet1")),
@@ -209,16 +212,11 @@ def _check_wiring(cfg: RealiseConfig) -> None:
             raise ValueError(f"unknown {what} {value!r}; known: {known}")
 
 
-class Realise(nn.Module):
-    """ReaLiSe of any fine-tuning preset. ``generator`` seeds the initial
-    weights (a CPU ``torch.Generator``; default seed 0).
-
-    A model has the parts its config wires (the module docstring), and its
-    ``state_dict()`` the reference's keys of those parts alone: no
-    ``char_images_multifonts`` without a glyph stream, no
-    ``resnet_layernorm`` for the merged presets, ``integrate`` for merged
-    and concat fusion, ``gate_net`` for the gates, ``cls.predictions`` for
-    the MLM head.
+class _TokenStreams(nn.Module):
+    """What :class:`Realise` and :class:`RealisePretrain` share: the streams
+    that depend only on the token id (the pho2 GRU or the pho1 lookups, the
+    CharResNet of either variant), their factorized routes and dedup
+    tables, the glyph tensor ``char_images_multifonts`` and the init.
 
     The factorized streams' tables are non-persistent buffers derived from
     the glyphs and the pinyin featurization, so ``state_dict()`` holds the
@@ -236,38 +234,11 @@ class Realise(nn.Module):
     brackets nothing, a caller that times the parts sets its own
     context-manager factory."""
 
-    def __init__(self, cfg: RealiseConfig,
-                 generator: Optional[torch.Generator] = None):
-        super().__init__()
-        reason = unported_reason(cfg)
-        if reason is not None:
-            raise NotImplementedError(reason)
-        _check_wiring(cfg)
-        self.cfg = cfg
-        h = cfg.hidden_size
-        self.bert = BertModel(cfg, cfg.num_hidden_layers)
-        if cfg.with_pho:
-            symbols = (PHO2_VOCAB_SIZE if cfg.pho_encoder == "pho2"
-                       else PHO1_VOCAB_SIZE)
-            self.pho_embeddings = nn.Embedding(symbols, h)
-            if cfg.pho_encoder == "pho2":
-                self.pho_gru = nn.GRU(h, h, batch_first=True)
-            self.pho_model = BertModel(cfg, cfg.pho_num_layers, with_word=False)
-        if cfg.with_res:
-            self.resnet = CharResNet(cfg.num_fonts, h, cfg.res_encoder)
-            if cfg.fusion != "merged":
-                self.resnet_layernorm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
-        n = cfg.num_streams
-        if cfg.fusion in ("gate", "softmax_gate"):
-            self.gate_net = nn.Linear((n + 1) * h, n)
-        elif cfg.fusion in ("merged", "concat"):
-            self.integrate = nn.Linear((2 if cfg.fusion == "merged" else n) * h, h)
-        self.output_block = (BertModel(cfg, cfg.out_num_layers, with_word=False)
-                             if cfg.out_num_layers > 0 else None)
-        if cfg.head == "mlm":
-            self.cls = MLMHead(cfg)
-        else:
-            self.classifier = TiedClassifier(cfg.vocab_size)
+    def _finish_init(self, generator: Optional[torch.Generator]) -> None:
+        """The glyph tensor, the derived tables' buffers and the seeded
+        init (``generator``: a CPU ``torch.Generator``; default seed 0),
+        after a subclass has built its parts."""
+        cfg = self.cfg
         if cfg.with_res:
             self.register_buffer("char_images_multifonts", torch.zeros(
                 cfg.vocab_size, cfg.num_fonts, cfg.glyph_size, cfg.glyph_size))
@@ -290,7 +261,7 @@ class Realise(nn.Module):
         (the heads' too), unit LayerNorm/BatchNorm scales, fresh BN
         statistics."""
         std = self.cfg.initializer_range
-        for name, mod in self.named_modules():
+        for mod in self.modules():
             if isinstance(mod, (nn.Linear, nn.Embedding)):
                 mod.weight.normal_(0.0, std, generator=generator)
                 if getattr(mod, "bias", None) is not None:
@@ -307,12 +278,12 @@ class Realise(nn.Module):
                                    generator=generator)
             elif isinstance(mod, (nn.LayerNorm, nn.BatchNorm2d)):
                 mod.reset_parameters()
-        (self.cls.predictions if self.cfg.head == "mlm"
-         else self.classifier).bias.zero_()
+            elif isinstance(mod, (TiedClassifier, _Predictions)):
+                mod.bias.zero_()
 
     @property
     def device(self) -> torch.device:
-        return self.bert.embeddings.word_embeddings.weight.device
+        return next(self.parameters()).device
 
     @torch.no_grad()
     def install_glyphs(self, glyphs) -> None:
@@ -458,6 +429,82 @@ class Realise(nn.Module):
         feats = self.resnet(images.to(self.dtype), weights)
         return table_gather(feats, inverse)
 
+    def _glyph_features(self, batch, tables, per_token) -> torch.Tensor:
+        """(B, S, H) raw CharResNet features of the batch's tokens: from the
+        'res' table, the factorized conv or the per-token conv."""
+        src_idx = batch["src_idx"]
+        b, s = src_idx.shape
+        rows = None if per_token else batch.get("res_rows")
+        if "res" in tables:
+            return tables["res"].to(self.dtype)[src_idx]
+        if rows is not None or (not per_token and b * s > self.res_conv_rows):
+            return self._factorized_conv(src_idx, rows,
+                                         batch.get("res_inverse"))
+        return self.res_features(src_idx.reshape(-1)).reshape(b, s, -1)
+
+    def _pho_inputs(self, batch, tables, per_token) -> torch.Tensor:
+        """(B, S, H) input embeddings of the pho BERT: the pho2 GRU's last
+        hiddens (from the 'pho' table, the factorized scan or the per-token
+        scan) or the sum of the three pho1 lookups (``_pho1_stream`` of the
+        JAX package: one table, rounded to the activation dtype, summed)."""
+        src_idx = batch["src_idx"]
+        b, s = src_idx.shape
+        if self.cfg.pho_encoder == "pho1":
+            return embed(self.pho_embeddings.weight, batch["pho1_idx"],
+                         self.dtype).sum(dim=2)
+        if "pho" in tables:
+            return tables["pho"].to(self.dtype)[src_idx]
+        if (not per_token and self.pho_uniq_idx is not None
+                and b * s > self.pho_uniq_idx.shape[0]):
+            return self._factorized_gru(src_idx)
+        gru_h = self.gru_features(batch["pho_idx"].reshape(b * s, -1),
+                                  batch["pho_lens"].reshape(b * s))
+        return gru_h.reshape(b, s, -1)
+
+
+class Realise(_TokenStreams):
+    """ReaLiSe of any fine-tuning preset. ``generator`` seeds the initial
+    weights (a CPU ``torch.Generator``; default seed 0); a pretraining stage
+    raises (:class:`RealisePretrain` builds those).
+
+    A model has the parts its config wires (the module docstring), and its
+    ``state_dict()`` the reference's keys of those parts alone: no
+    ``char_images_multifonts`` without a glyph stream, no
+    ``resnet_layernorm`` for the merged presets, ``integrate`` for merged
+    and concat fusion, ``gate_net`` for the gates, ``cls.predictions`` for
+    the MLM head."""
+
+    def __init__(self, cfg: RealiseConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_wiring(cfg)
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.bert = BertModel(cfg, cfg.num_hidden_layers)
+        if cfg.with_pho:
+            symbols = (PHO2_VOCAB_SIZE if cfg.pho_encoder == "pho2"
+                       else PHO1_VOCAB_SIZE)
+            self.pho_embeddings = nn.Embedding(symbols, h)
+            if cfg.pho_encoder == "pho2":
+                self.pho_gru = nn.GRU(h, h, batch_first=True)
+            self.pho_model = BertModel(cfg, cfg.pho_num_layers, with_word=False)
+        if cfg.with_res:
+            self.resnet = CharResNet(cfg.num_fonts, h, cfg.res_encoder)
+            if cfg.fusion != "merged":
+                self.resnet_layernorm = nn.LayerNorm(h, eps=cfg.layer_norm_eps)
+        n = cfg.num_streams
+        if cfg.fusion in ("gate", "softmax_gate"):
+            self.gate_net = nn.Linear((n + 1) * h, n)
+        elif cfg.fusion in ("merged", "concat"):
+            self.integrate = nn.Linear((2 if cfg.fusion == "merged" else n) * h, h)
+        self.output_block = (BertModel(cfg, cfg.out_num_layers, with_word=False)
+                             if cfg.out_num_layers > 0 else None)
+        if cfg.head == "mlm":
+            self.cls = MLMHead(cfg)
+        else:
+            self.classifier = TiedClassifier(cfg.vocab_size)
+        self._finish_init(generator)
+
     def forward(self, batch: Dict[str, torch.Tensor],
                 tables: Optional[Dict[str, torch.Tensor]] = None,
                 use_kernels: bool = False,
@@ -562,37 +609,135 @@ class Realise(nn.Module):
                     logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
         return out
 
-    def _glyph_features(self, batch, tables, per_token) -> torch.Tensor:
-        """(B, S, H) raw CharResNet features of the batch's tokens: from the
-        'res' table, the factorized conv or the per-token conv."""
-        src_idx = batch["src_idx"]
-        b, s = src_idx.shape
-        rows = None if per_token else batch.get("res_rows")
-        if "res" in tables:
-            return tables["res"].to(self.dtype)[src_idx]
-        if rows is not None or (not per_token and b * s > self.res_conv_rows):
-            return self._factorized_conv(src_idx, rows,
-                                         batch.get("res_inverse"))
-        return self.res_features(src_idx.reshape(-1)).reshape(b, s, -1)
 
-    def _pho_inputs(self, batch, tables, per_token) -> torch.Tensor:
-        """(B, S, H) input embeddings of the pho BERT: the pho2 GRU's last
-        hiddens (from the 'pho' table, the factorized scan or the per-token
-        scan) or the sum of the three pho1 lookups (``_pho1_stream`` of the
-        JAX package: one table, rounded to the activation dtype, summed)."""
-        src_idx = batch["src_idx"]
-        b, s = src_idx.shape
-        if self.cfg.pho_encoder == "pho1":
-            return embed(self.pho_embeddings.weight, batch["pho1_idx"],
-                         self.dtype).sum(dim=2)
-        if "pho" in tables:
-            return tables["pho"].to(self.dtype)[src_idx]
-        if (not per_token and self.pho_uniq_idx is not None
-                and b * s > self.pho_uniq_idx.shape[0]):
-            return self._factorized_gru(src_idx)
-        gru_h = self.gru_features(batch["pho_idx"].reshape(b * s, -1),
-                                  batch["pho_lens"].reshape(b * s))
-        return gru_h.reshape(b, s, -1)
+class RealisePretrain(_TokenStreams):
+    """The pretraining stages of the reference (``init_pretrain`` and
+    ``apply_pretrain`` of the JAX package, models/realise.py:962-1098;
+    reference src/models.py:1174-1488), by preset:
+
+    * ``pho2-pretrain`` (Pho2Pretrain): recover each char from its pinyin
+      alone: the pho2 GRU's last hiddens → the pho BERT (``pho_model``) →
+      the MLM head ``cls2.predictions``, the loss over ``loss_masks``
+      (``Featurizer.featurize_pho_pretrain``: the inputs are the target ids,
+      the loss covers Chinese chars);
+    * ``res-pretrain`` (ResPretrain): classify a char from its glyph stack:
+      ``char_idx`` (N,) → CharResNet → dropout → the linear head ``cls3``
+      (its own bias, added to the logits rounded to the activation dtype);
+      the labels are the char ids themselves, so the loss always comes;
+    * ``pho2-res-pretrain`` (Pho2ResPretrain): the GRU hiddens plus the RAW
+      CharResNet features (no LayerNorm) → the pho BERT, named
+      ``pho_res_model`` as in the reference → ``cls2.predictions``.
+
+    The MLM heads fold their bias into the float32 loss (``apply_head_split``
+    of the JAX package), as :class:`Realise`'s does. The streams factorize
+    as :class:`Realise` routes them (the GRU and the conv each on its own row
+    count); ``res-pretrain`` convolves its (N,) chars as they come. Dropout
+    (training mode) draws from the caller's generator: the glyph features'
+    (``res-pretrain``) and the pho BERT's; no layer runs on the head's
+    input. A state dict holds the reference's keys of the stage."""
+
+    def __init__(self, cfg: RealiseConfig,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        wiring = {"pho2-pretrain": ("pho2", False, "mlm"),
+                  "res-pretrain": ("none", True, "linear"),
+                  "pho2-res-pretrain": ("pho2", True, "mlm")}
+        if cfg.fusion != "pretrain" or cfg.model_type not in wiring:
+            raise ValueError(
+                f"{cfg.model_type!r} (fusion {cfg.fusion!r}) is not a "
+                f"pretraining stage; known: {sorted(wiring)} (Realise builds "
+                f"the fine-tuning presets)")
+        if (cfg.pho_encoder, cfg.with_res, cfg.head) != wiring[cfg.model_type]:
+            raise ValueError(
+                f"{cfg.model_type!r} wires pho_encoder, a glyph stream and "
+                f"head as {wiring[cfg.model_type]}, got {cfg.pho_encoder!r}, "
+                f"{cfg.with_res}, {cfg.head!r}")
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self._pho_bert_name = None
+        if cfg.with_pho:
+            self.pho_embeddings = nn.Embedding(PHO2_VOCAB_SIZE, h)
+            self.pho_gru = nn.GRU(h, h, batch_first=True)
+        if cfg.with_res:
+            self.resnet = CharResNet(cfg.num_fonts, h, cfg.res_encoder)
+        if cfg.with_pho:
+            self._pho_bert_name = ("pho_res_model" if cfg.with_res
+                                   else "pho_model")
+            self.add_module(self._pho_bert_name, BertModel(
+                cfg, cfg.pho_num_layers, with_word=False))
+            self.cls2 = MLMHead(cfg)
+        else:
+            self.cls3 = nn.Linear(h, cfg.vocab_size)
+        self._finish_init(generator)
+
+    @property
+    def pho_bert(self) -> Optional[BertModel]:
+        """The pho BERT (``pho_model`` or ``pho_res_model``); None for
+        ``res-pretrain``."""
+        return (None if self._pho_bert_name is None
+                else getattr(self, self._pho_bert_name))
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                use_kernels: bool = False,
+                generator: Optional[torch.Generator] = None,
+                per_token: bool = False) -> Dict[str, torch.Tensor]:
+        """→ {'logits', 'loss_sum', 'loss_count'}; in training mode the
+        logits do not come (the loss reads the unbiased ones).
+
+        ``batch``: ``res-pretrain``: char_idx (N,) → logits (N, V) and the
+        loss; the others: src_idx (the target ids), masks, pho_idx and
+        pho_lens (B, S, P) unless the GRU factorizes, and res_rows /
+        res_inverse of :meth:`conv_rows` for the glyph stream where the batch
+        has them → logits (B, S, V), and the loss when tgt_idx and
+        loss_masks come too. ``use_kernels``, ``generator`` and
+        ``per_token`` as in :meth:`Realise.forward`."""
+        if self.pho_bert is None:
+            return self._classify_glyphs(batch["char_idx"], generator)
+        cfg, span = self.cfg, self.span
+        with span("gru"):
+            hidden = self._pho_inputs(batch, {}, per_token)
+        if cfg.with_res:
+            with span("glyph"):
+                hidden = hidden + self._glyph_features(batch, {}, per_token)
+        with span("pho_bert"):
+            seq = self.pho_bert(inputs_embeds=hidden,
+                                attention_mask=batch["masks"],
+                                use_kernels=use_kernels, generator=generator)
+        with span("head+ce"):
+            logits_nb, bias = self.cls2(seq)
+            has_loss = "tgt_idx" in batch and "loss_masks" in batch
+            out = {}
+            if not (self.training and has_loss):
+                out["logits"] = logits_nb + bias.to(logits_nb.dtype)
+            if has_loss:
+                out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
+                    logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
+        return out
+
+    def _classify_glyphs(self, char_idx: torch.Tensor,
+                         generator: Optional[torch.Generator]
+                         ) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        with self.span("glyph"):
+            feats = self.res_features(char_idx)
+            if self.training and generator is not None:
+                feats = dropout(feats, cfg.hidden_dropout_prob,
+                                random_key(generator))
+        with self.span("head+ce"):
+            logits = dense(feats, self.cls3.weight, self.cls3.bias)
+            out = {} if self.training else {"logits": logits}
+            out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
+                logits[:, None], char_idx[:, None],
+                torch.ones_like(char_idx[:, None]))
+        return out
+
+
+def build_model(cfg: RealiseConfig,
+                generator: Optional[torch.Generator] = None) -> _TokenStreams:
+    """The model of a config: :class:`RealisePretrain` for a pretraining
+    stage (``fusion="pretrain"``), :class:`Realise` for every other preset."""
+    cls = RealisePretrain if cfg.fusion == "pretrain" else Realise
+    return cls(cfg, generator=generator)
 
 
 @torch.no_grad()

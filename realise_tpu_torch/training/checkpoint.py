@@ -12,6 +12,8 @@ A checkpoint directory ``saved_ckpt-{step}/`` holds:
 
 ``Corrector`` and ``cli/test`` read ``config.json`` and ``model.pt`` only, so
 a checkpoint with or without the trainer's files serves and scores alike.
+A pretraining stage's checkpoint has the same files: :func:`load_config`
+and ``models.realise.build_model`` give back its ``RealisePretrain``.
 The whole directory is written as ``saved_ckpt-{step}.tmp/`` and then
 renamed into place, so a crash mid-save leaves no ``saved_ckpt-{step}``
 without its ``trainer.pt``: ``--resume`` then continues from the last

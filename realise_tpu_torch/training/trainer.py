@@ -26,6 +26,14 @@ Eval (``prepare_eval_tables`` + ``eval_step``, trainer.py:531-592 of the JAX
 package, one process) runs the deterministic forward with the (V, H) stream
 tables of the current weights and the serving kernels.
 
+The pretraining stages (a ``RealisePretrain``, the JAX Trainer's
+``pretrain=True``, trainer.py:233-236,278-343,542) take the same step and
+accumulation: ``res-pretrain``'s (N,) ``char_idx`` batches split into
+microbatches as the (B, S) ones do. Their eval runs the live streams (they
+have no (V, H) tables), the conv over the batch's own glyph rows, and
+returns the loss whenever the batch has labels (``char_idx`` always
+does).
+
 :meth:`Trainer.state_dict` holds what a resume needs beside the weights: the
 optimizer's state, the step and the dropout generator's state. The JAX step
 folds the step into its dropout key (trainer.py:135), so a JAX resume
@@ -43,11 +51,15 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.data.features import to_device
 from realise_tpu_torch.device import resolve_device
-from realise_tpu_torch.models.realise import Realise, precompute_inference_tables
+from realise_tpu_torch.models.realise import (
+    RealisePretrain,
+    precompute_inference_tables,
+)
 from realise_tpu_torch.ops.kernels import kernels_unviable_reason
 from realise_tpu_torch.training.optim import (
     clip_by_global_norm,
@@ -59,8 +71,8 @@ logger = logging.getLogger("realise_tpu_torch")
 
 
 class Trainer:
-    """Owns a ``Realise`` model on its device, its AdamW state and the
-    dropout generator.
+    """Owns a ``Realise`` or ``RealisePretrain`` model on its device, its
+    AdamW state and the dropout generator.
 
     ``device``: None → CUDA (raises without one). ``use_kernels``: None → on
     for CUDA; a config the kernels cannot run raises with the reason unless
@@ -71,7 +83,7 @@ class Trainer:
     def __init__(
         self,
         cfg: RealiseConfig,
-        model: Realise,
+        model: nn.Module,
         learning_rate: float = 5e-5,
         warmup_steps: int = 0,
         total_steps: int = 10000,
@@ -100,6 +112,7 @@ class Trainer:
                              f"{grad_accum_steps}")
         self.use_kernels = use_kernels
         self.per_token_streams = per_token_streams
+        self.pretrain = isinstance(model, RealisePretrain)
         self.grad_accum_steps = grad_accum_steps
         self.max_grad_norm = max_grad_norm
         self.model = model.to(self.device).train()
@@ -115,7 +128,7 @@ class Trainer:
         """The host batch's rows in ``grad_accum_steps`` contiguous parts,
         each with its distinct glyph rows, on the device."""
         n = self.grad_accum_steps
-        rows = len(batch["src_idx"])
+        rows = len(batch["src_idx" if "src_idx" in batch else "char_idx"])
         if rows % n:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{n} microbatches")
@@ -123,7 +136,7 @@ class Trainer:
         out = []
         for i in range(n):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-            if not self.per_token_streams:
+            if not self.per_token_streams and "src_idx" in mb:
                 mb.update(self.model.conv_rows(mb["src_idx"]))
             out.append(to_device(mb, self.device))
         return out
@@ -182,20 +195,32 @@ class Trainer:
         the preset has them
         (``precompute_inference_tables``): every later ``eval_step`` gathers
         from them instead of running the conv stack and the GRU. Call again
-        after loading other weights; a train step drops them."""
+        after loading other weights; a train step drops them. The
+        pretraining stages have none: their eval runs the live streams."""
         self.model.eval()
+        if self.pretrain:
+            self._eval_tables = None
+            return
         self._eval_tables = precompute_inference_tables(
             self.model, *featurizer.pho2_tables())
 
     @torch.inference_mode()
     def eval_step(self, device_batch: Dict[str, Any]) -> Dict[str, Any]:
         """The deterministic forward over a featurized host batch →
-        {'pred_idx': (B, S) argmax ids, 'loss': the mean loss over its
-        loss positions, when it has targets} on the host."""
-        batch = to_device(device_batch, self.device)
+        {'pred_idx': (B, S) argmax ids ((N,) for ``char_idx``), 'loss': the
+        mean loss over its loss positions, when it has targets} on the
+        host."""
         self.model.eval()
-        out = self.model(batch, tables=self._eval_tables,
-                         use_kernels=self.use_kernels)
+        if self.pretrain:
+            batch = dict(device_batch)
+            if "src_idx" in batch:
+                batch.update(self.model.conv_rows(batch["src_idx"]))
+            out = self.model(to_device(batch, self.device),
+                             use_kernels=self.use_kernels)
+        else:
+            out = self.model(to_device(device_batch, self.device),
+                             tables=self._eval_tables,
+                             use_kernels=self.use_kernels)
         res = {"pred_idx": out["logits"].argmax(-1).cpu().numpy()}
         if "loss_sum" in out:
             res["loss"] = float(out["loss_sum"]

@@ -75,9 +75,9 @@ def test_cli_trains_and_the_corrector_serves(tmp_path):
 
 
 def test_cli_refuses_unported_flags_and_missing_cuda(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="ROADMAP queue A item 7"):
+    with pytest.raises(SystemExit, match="ROADMAP queue A item 6"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
-                     "--pho_ckpt", str(tmp_path)])
+                     "--distributed"])
     with pytest.raises(SystemExit, match="--length_buckets .*item 9"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
                      "--length_buckets", "32,64"])

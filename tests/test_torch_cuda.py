@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from realise_tpu_torch.config import config_for
-from realise_tpu_torch.models.realise import Realise
+from realise_tpu_torch.device import resolve_device
+from realise_tpu_torch.models.realise import Realise, RealisePretrain
 from realise_tpu_torch.ops import bert as tbert
 from realise_tpu_torch.ops.kernels import bert_block as tbb
 from realise_tpu_torch.ops.kernels import bert_block_train as tbt
@@ -166,6 +167,81 @@ def test_model_kernel_path_matches_plain_path(cuda_device):
         want = model(batch, use_kernels=False)["logits"]
     assert layers == (4, 4)
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("stage", ["pho2-pretrain", "pho2-res-pretrain"])
+def test_pretraining_kernel_path_matches_plain_path(cuda_device, stage):
+    """A pretraining stage on the card in float32 at dropout 0: the eval
+    logits and a train step's loss and gradients on the kernel path against
+    the plain path (chip_smoke.py phase 8's limits: loss 1e-5 relative,
+    each gradient 1.5e-3 of its largest |value|), and one launch of each
+    kernel per pho BERT layer and call. The kernels reach the glyph
+    stream through the gradient of its features, which is held to the same
+    limit. Its weights' gradients pass the BatchNorm backward, whose mean
+    subtractions over this batch's 111 images cancel most of each sum, so
+    the float32 order differences upstream reach 1.3e-3 to 1.7e-3 of the
+    first shortcut conv's largest gradient, and two calls of one path read
+    6.7e-4 to 2.1e-3 apart (cuDNN's float32 weight gradients;
+    tools/glyph_grad_probe.py, H100). chip_smoke.py phase 12 holds those
+    weights' gradients to the limit at the published widths over 4096
+    images, where the probe reads 2.7e-4 to 4.3e-4. The model reaches the
+    card through resolve_device, as the entry points' models do, which
+    turns cuDNN's TF32 convolutions off (on: 1.9e-2 at this batch)."""
+    cfg = config_for(stage, vocab_size=300, hidden_size=128,
+                     num_attention_heads=2, intermediate_size=256,
+                     pho_num_layers=2, num_fonts=1, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0)
+    gen = torch.Generator().manual_seed(0)
+    model = RealisePretrain(cfg, generator=gen)
+    if cfg.with_res:
+        model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
+                                         generator=gen) < 0.5).float())
+    model = model.to(resolve_device(cuda_device))
+    rng = np.random.RandomState(2)
+    b, s, p = 3, 37, cfg.pho2_max_len
+    masks = np.ones((b, s), np.int64)
+    masks[1, 20:] = 0
+    src = rng.randint(0, cfg.vocab_size, (b, s))
+    batch = {"src_idx": src, "tgt_idx": src, "masks": masks,
+             "loss_masks": masks * (rng.rand(b, s) < 0.8),
+             "pho_idx": rng.randint(1, 30, (b, s, p)),
+             "pho_lens": rng.randint(0, p + 1, (b, s))}
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=cuda_device)
+             for k, v in batch.items()}
+    _reset_launches()
+    for fn in tbt.KERNEL_WRAPPERS:
+        fn.launches = 0
+    with torch.inference_mode():
+        got = model.eval()(batch, use_kernels=True)["logits"]
+        want = model(batch, use_kernels=False)["logits"]
+    assert (tbb.attention_block.launches, tbb.ffn_block.launches) == (2, 2)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    feats_grad = {}
+
+    def keep_feature_grad(module, args, feats):
+        feats.register_hook(
+            lambda g: feats_grad.__setitem__("glyph features", g.clone()))
+
+    if cfg.with_res:
+        model.resnet.register_forward_hook(keep_feature_grad)
+    results = []
+    for use_kernels in (True, False):
+        model.load_state_dict(state)
+        model.train().zero_grad(set_to_none=True)
+        out = model(batch, use_kernels=use_kernels,
+                    generator=torch.Generator().manual_seed(0))
+        out["loss_sum"].backward()
+        grads = {n: q.grad.clone() for n, q in model.named_parameters()
+                 if not n.startswith("resnet.")}
+        results.append((out["loss_sum"].item(), dict(grads, **feats_grad)))
+    assert [fn.launches for fn in tbt.KERNEL_WRAPPERS] == [2, 2, 2, 2]
+    (loss_k, grads_k), (loss_p, grads_p) = results
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    floor = 1e-4 * max(g.abs().max().item() for g in grads_p.values())
+    for name, g in grads_p.items():
+        err = (grads_k[name] - g).abs().max().item()
+        assert err <= 1.5e-3 * max(g.abs().max().item(), floor), (name, err)
 
 
 def test_cli_correct_on_cuda(cuda_device, tmp_path, monkeypatch, capsys):

@@ -44,6 +44,7 @@ from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
 from realise_tpu_torch.text.vocab import build_synthetic_vocab, vocab_to_dict
 from realise_tpu_torch.training.checkpoint import list_checkpoints
 from realise_tpu_torch.training.trainer import Trainer
+from torch_port_fixtures import live_glyph_features, live_glyph_rows
 
 CHARS = "的地得我你他她天气很好北京经济上海"
 
@@ -161,9 +162,9 @@ def test_evaluate_model_matches_jax(small_vocab, tmp_path, caplog, year13):
     rng = np.random.RandomState(0)
     glyphs = (rng.rand(len(small_vocab), 1, 32, 32) > 0.5).astype(np.float32)
     params, state = init_realise(jax.random.PRNGKey(0), cfg, glyphs=glyphs)
-    params = jax.tree.map(
+    params = live_glyph_features(jax.tree.map(
         lambda x: np.asarray(x) + rng.normal(0, 0.5, np.shape(x)).astype(np.float32),
-        params)
+        params))
     state = jax.tree.map(np.asarray, state)
     tok = WordPieceTokenizer(vocab_to_dict(small_vocab))
     jtok = JaxTokenizer(vocab_to_dict(small_vocab))
@@ -178,6 +179,7 @@ def test_evaluate_model_matches_jax(small_vocab, tmp_path, caplog, year13):
         assert dropped > 0
     model = trealise.Realise(pcfg)
     model.load_state_dict(state_dict_from_jax(params, state, pcfg))
+    assert live_glyph_rows(model) == len(small_vocab)
     ours_t = Trainer(pcfg, model, use_kernels=True, device="cpu")
     jt = JaxTrainer(cfg, jax.tree.map(jnp.asarray, params),
                     jax.tree.map(jnp.asarray, state), use_pallas=True)

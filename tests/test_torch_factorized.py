@@ -30,6 +30,7 @@ from realise_tpu_torch.ops import resnet as tresnet
 from realise_tpu_torch.ops.layers import table_gather
 from realise_tpu_torch.training import checkpoint as tckpt
 from realise_tpu_torch.training.trainer import Trainer
+from torch_port_fixtures import live_glyph_features, live_glyph_rows
 
 V, B, S, P = 80, 16, 10, 8
 CFG = config_for("bert-pho2-res-arch3", vocab_size=V, hidden_size=16,
@@ -73,10 +74,12 @@ def jax_model():
                                  pho_tables=_pho_tables())
     assert state["res_uniq_images_nhwc"].shape[0] == 128
     assert state["pho_uniq_idx"].shape[0] == 128
-    params = jax.tree.map(
+    params = live_glyph_features(jax.tree.map(
         lambda x: np.asarray(x) + rng.normal(0, 0.05, np.shape(x)).astype(np.float32),
-        params)
-    return params, jax.tree.map(np.asarray, state)
+        params))
+    state = jax.tree.map(np.asarray, state)
+    assert live_glyph_rows(_port_model(params, state)) == V
+    return params, state
 
 
 def _port_model(params, state):

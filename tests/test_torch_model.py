@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from realise_tpu.config import PHO2_VOCAB_SIZE, config_for
+from realise_tpu.config import MODEL_PRESETS, PHO2_VOCAB_SIZE, config_for
 from realise_tpu.models.realise import (
     apply_realise,
     init_realise,
@@ -20,6 +20,7 @@ from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.models import realise as trealise
 from realise_tpu_torch.models.convert import state_dict_from_jax
 from realise_tpu_torch.training import checkpoint as tckpt
+from torch_port_fixtures import live_glyph_features, live_glyph_rows
 
 TOL = 1e-4
 V, B, S = 80, 2, 10
@@ -40,19 +41,20 @@ def _np(t):
 @pytest.fixture(scope="module")
 def pair():
     """JAX (params, state) with every parameter random, and the port model
-    holding the same weights."""
+    holding the same weights, its glyph features live on every row."""
     rng = np.random.RandomState(0)
     glyphs = (rng.rand(V, 2, 32, 32) > 0.5).astype(np.float32)
     params, state = init_realise(jax.random.PRNGKey(0), CFG, glyphs=glyphs)
-    params = jax.tree.map(
+    params = live_glyph_features(jax.tree.map(
         lambda x: np.asarray(x) + rng.normal(0, 0.05, np.shape(x)).astype(np.float32),
-        params)
+        params))
     state = dict(jax.tree.map(np.asarray, state))
     state["resnet"] = jax.tree.map(
         lambda x: np.abs(x + rng.normal(0, 0.2, x.shape)).astype(np.float32),
         state["resnet"])
     model = trealise.Realise(PCFG)
     model.load_state_dict(state_dict_from_jax(params, state, PCFG))
+    assert live_glyph_rows(model) == V
     return params, state, model.eval()
 
 
@@ -183,9 +185,18 @@ def test_port_checkpoint_round_trip(pair, tmp_path):
 
 
 def test_unported_configs_raise():
-    """Every fine-tuning preset builds; a pretraining stage raises, naming
-    its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="pretrain.*item 7"):
-        trealise.Realise(RealiseConfig.from_dict(
-            config_for("pho2-pretrain", vocab_size=V, hidden_size=24,
-                       num_attention_heads=3, intermediate_size=48).to_dict()))
+    """build_model builds every preset of MODEL_PRESETS, a pretraining stage
+    as RealisePretrain; Realise refuses a pretraining config, naming
+    RealisePretrain."""
+    for model_type in MODEL_PRESETS:
+        cfg = RealiseConfig.from_dict(config_for(
+            model_type, vocab_size=V, hidden_size=24, num_hidden_layers=1,
+            num_attention_heads=3, intermediate_size=48,
+            pho_num_layers=1).to_dict())
+        model = trealise.build_model(cfg)
+        pretrain = cfg.fusion == "pretrain"
+        assert type(model) is (trealise.RealisePretrain if pretrain
+                               else trealise.Realise), model_type
+        if pretrain:
+            with pytest.raises(ValueError, match="RealisePretrain"):
+                trealise.Realise(cfg)

@@ -33,6 +33,7 @@ from realise_tpu_torch.cli.common import add_common_args, build_config
 from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.models import realise as trealise
 from realise_tpu_torch.models.convert import state_dict_from_jax
+from torch_port_fixtures import live_glyph_features
 
 V, B, S, P = 80, 2, 10, 8
 TOL = 1e-4
@@ -80,17 +81,6 @@ def jax_config(name, **kw):
 
 def _np(t):
     return t.detach().float().numpy()
-
-
-def live_glyph_features(params):
-    """Shift every CharResNet BatchNorm bias by +1: at these widths (1-6
-    channels a block) the ReLUs otherwise zero the features of most glyph
-    rows, and the glyph stream would be tested on zeros."""
-    for block in params.get("res", {}).get("resnet", {}).values():
-        for name, p in block.items():
-            if "bn" in name:
-                p["bias"] = p["bias"] + 1.0
-    return params
 
 
 def vocab_tables(seed=2):
@@ -304,4 +294,5 @@ def test_build_config_matches_jax(name, extra):
     theirs = j_build_config(j_add_common_args(argparse.ArgumentParser())
                             .parse_args(argv), 21128)
     assert ours.to_dict() == theirs.to_dict()
-    assert trealise.unported_reason(ours) is None
+    with torch.device("meta"):
+        assert type(trealise.build_model(ours)) is trealise.Realise

@@ -30,7 +30,7 @@ from realise_tpu_torch.data.features import make_example
 from realise_tpu_torch.text.pinyin import Pinyin1Convertor as TPinyin1
 from realise_tpu_torch.text.pinyin import pho1_convertor
 from realise_tpu_torch.text.tokenizer import WordPieceTokenizer as TTokenizer
-from test_torch_presets import live_glyph_features
+from torch_port_fixtures import live_glyph_features
 
 SENTENCES = ["我爱北经。", "天气很好", "你好吗？", "嗯，好", "再见了 朋友",
              "我爱Ω北京", "hello world好", "這是一個測試"]

@@ -21,6 +21,7 @@ from realise_tpu_torch.data.features import Featurizer as TFeaturizer
 from realise_tpu_torch.data.features import to_device
 from realise_tpu_torch.text.tokenizer import WordPieceTokenizer as TTokenizer
 from realise_tpu_torch.text.vocab import build_synthetic_vocab as t_vocab
+from torch_port_fixtures import live_glyph_features, live_glyph_rows
 
 SENTENCES = ["我爱北经。", "天气很好", "你好吗？", "好", "再见了 朋友",
              "我爱Ω北京", "hello world好", "這是一個測試"]
@@ -74,6 +75,7 @@ def ckpts(small_vocab_list, tmp_path_factory):
     from realise_tpu.models.realise import init_realise
     from realise_tpu.training.checkpoint import load_checkpoint, save_checkpoint
     from realise_tpu_torch.models.convert import state_dict_from_jax
+    from realise_tpu_torch.models.realise import Realise
     from realise_tpu_torch.training.checkpoint import save_checkpoint as t_save
 
     root = tmp_path_factory.mktemp("torch_serving")
@@ -89,16 +91,19 @@ def ckpts(small_vocab_list, tmp_path_factory):
     glyphs = (rng.rand(cfg.vocab_size, 1, 32, 32) > 0.5).astype(np.float32)
     params, state = init_realise(jax.random.PRNGKey(0), cfg, glyphs=glyphs)
     # Spread the logits so a top-2 tie within LOGIT_TOL is rare.
-    params = jax.tree.map(
+    params = live_glyph_features(jax.tree.map(
         lambda x: np.asarray(x) + rng.normal(0, 0.2, np.shape(x)).astype(np.float32),
-        params)
+        params))
     jdir = str(root / "jax")
     save_checkpoint(jdir, 0, params, state, cfg=cfg)
     restored = load_checkpoint(os.path.join(jdir, "saved_ckpt-0"))
     pcfg = RealiseConfig.from_dict(cfg.to_dict())
     tdir = str(root / "port")
-    t_save(tdir, 0, state_dict_from_jax(restored["params"], restored["state"],
-                                        pcfg), pcfg)
+    sd = state_dict_from_jax(restored["params"], restored["state"], pcfg)
+    t_save(tdir, 0, sd, pcfg)
+    model = Realise(pcfg)
+    model.load_state_dict(sd)
+    assert live_glyph_rows(model) == cfg.vocab_size
     return jdir, tdir, vocab_path
 
 

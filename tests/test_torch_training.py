@@ -25,6 +25,7 @@ from realise_tpu_torch.models.convert import state_dict_from_jax
 from realise_tpu_torch.ops import resnet as tresnet
 from realise_tpu_torch.training import optim as toptim
 from realise_tpu_torch.training.trainer import Trainer
+from torch_port_fixtures import live_glyph_features, live_glyph_rows
 
 V, B, S = 80, 4, 10
 CFG = config_for("bert-pho2-res-arch3", vocab_size=V, hidden_size=16,
@@ -44,10 +45,12 @@ def jax_model():
     rng = np.random.RandomState(0)
     glyphs = (rng.rand(V, 1, 32, 32) > 0.5).astype(np.float32)
     params, state = init_realise(jax.random.PRNGKey(0), CFG, glyphs=glyphs)
-    params = jax.tree.map(
+    params = live_glyph_features(jax.tree.map(
         lambda x: np.asarray(x) + rng.normal(0, 0.05, np.shape(x)).astype(np.float32),
-        params)
-    return params, jax.tree.map(np.asarray, state)
+        params))
+    state = jax.tree.map(np.asarray, state)
+    assert live_glyph_rows(_port_model(params, state)) == V
+    return params, state
 
 
 def _port_model(params, state):

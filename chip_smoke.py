@@ -81,6 +81,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    factorized streams' loss, gradients and BatchNorm statistics with the
    per-token streams'; two bf16 backward calls must give the same bits for
    every gradient (the pinyin embeddings, the GRU and the CharResNet too);
+8b. (run after phase 9) training at the bucket lengths: the four train
+   kernels against their plain versions at B=256, S=32 and 64 (float32 and
+   bfloat16, dropout 0 and 0.1, a quarter of the rows padded, with the
+   masked-garbage check); ``cli/train --length_buckets 32,64,128
+   --trace_dir --trace_steps 3 --do_eval`` at full width (arch3, bf16,
+   dropout 0.1, B=256) for one epoch of 3072 sentences of 20-100 chars and
+   a dev set of 256: every bucket reached in the epoch's order, 19 launches
+   of each train kernel a step, the trace naming each train kernel's CUDA
+   functions (``TRACE_NAMES``); then one step per bucket at B=256 and 32
+   (host clock, CUDA events, profiled kernels, peak memory), two bf16
+   backward calls at S=32 and 64 the same bits, ``fit``'s dispatch
+   percentiles at B=256 (the CLI's) and at B=32 with the card's busy
+   share, an epoch's sentences/s bucketed and padded to 128; then
+   tests/test_convergence.py's recipe on the card through the kernels
+   (held-out sent-correct-F1 and sent-detect-F1 above 50). The CLI run and
+   the convergence run join the kernels' launch record;
 9. eval and scoring: the trained model saved as a port checkpoint, loaded
    as ``cli/test`` loads it and scored by ``cli.common.evaluate_model`` on
    1024 synthetic sentences in batches of 32 with the serving kernels
@@ -622,9 +638,14 @@ def train_outputs(tbt, x, dy, p_att, p_ffn, bias, seed, rate, kernel):
     return out
 
 
-def check_train_kernels(device, gen):
-    """Phase 6: the train kernels against their plain versions; returns the
-    worst relative error per (kernel, dtype)."""
+TRAIN_CHECK_SHAPES = ((8, 128, (128, 100, 128, 64, 128, 7, 128, 128)),
+                      (4, 37, (37, 20, 37, 5)))
+
+
+def check_train_kernels(device, gen, shapes=TRAIN_CHECK_SHAPES):
+    """Phase 6 (and 8b at its ``shapes``): the train kernels against their
+    plain versions at each (B, S, valid lengths); returns the worst relative
+    error per (kernel, dtype)."""
     import torch
 
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
@@ -632,8 +653,7 @@ def check_train_kernels(device, gen):
     worst = {}
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
-        for b, s, lengths in ((8, 128, (128, 100, 128, 64, 128, 7, 128, 128)),
-                              (4, 37, (37, 20, 37, 5))):
+        for b, s, lengths in shapes:
             p_att, p_ffn, x, mask, bias4 = block_inputs(b, s, lengths, dtype,
                                                         device, gen)
             bias = bias4.reshape(b, s).float()
@@ -1634,11 +1654,11 @@ def check_factorized_paths(device, cfg):
         fail("the factorized streams disagree with the per-token streams")
 
 
-def check_stream_determinism(trainer, batch):
-    """Two bf16 forward + backward calls of the trained model on one B=32
-    batch, the Trainer's route and one dropout seed: every gradient, those
-    of the pinyin embeddings, the GRU and the CharResNet among them, must be
-    the same bits."""
+def check_stream_determinism(trainer, batch, label="B=32"):
+    """Two bf16 forward + backward calls of the trained model on one batch
+    (B=32 in phase 8, ``label`` names its shape), the Trainer's route and
+    one dropout seed: every gradient, those of the pinyin embeddings, the
+    GRU and the CharResNet among them, must be the same bits."""
     import torch
 
     from realise_tpu_torch.data.features import to_device
@@ -1663,7 +1683,7 @@ def check_stream_determinism(trainer, batch):
     differ = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
     streams = [n for n in grads[0]
                if n.startswith(("pho_embeddings", "pho_gru.", "resnet."))]
-    log(f"determinism bf16 B=32: two backward calls give the same gradient "
+    log(f"determinism bf16 {label}: two backward calls give the same gradient "
         f"bits for {len(grads[0]) - len(differ)} of {len(grads[0])} tensors, "
         f"{len([n for n in streams if n not in differ])} of the "
         f"{len(streams)} stream tensors (pho_embeddings, pho_gru.*, resnet.*)"
@@ -2105,6 +2125,359 @@ def presets(device, card):
     return launches, rows
 
 
+# ------------------------------------------------------------ length buckets
+BUCKETS = (32, 64, 128)
+# The CUDA functions each train kernel's bf16 steps must show in the
+# cli/train trace: its products by epilogue mode (A layout, B layout; the
+# schedule flag left out, since inter.W2^T takes ping-pong at M = B*S = 8192
+# by its wave fill and the cooperative tile at 16384 and 32768) and the
+# attention cores.
+TRACE_NAMES = {
+    "attention_train_forward": (QKV, "gemm_sm90<4, false, true, ", CORE),
+    "attention_train_backward": ("gemm_sm90<7, false, false, ",
+                                 "gemm_sm90<8, false, false, ",
+                                 "attention_bwd_core_tc<"),
+    "ffn_train_forward": ("gemm_sm90<1, false, true, ",
+                          "gemm_sm90<5, false, true, "),
+    "ffn_train_backward": ("gemm_sm90<9, false, true, ",
+                           "gemm_sm90<10, false, false, ")}
+# tests/test_convergence.py's tiny arch3, dropout 0, float32.
+CONVERGENCE_CFG = dict(vocab_size=300, hidden_size=32, num_hidden_layers=2,
+                       num_attention_heads=2, intermediate_size=64,
+                       pho_num_layers=1, out_num_layers=1, max_seq_length=16,
+                       max_position_embeddings=32, num_fonts=1,
+                       hidden_dropout_prob=0.0,
+                       attention_probs_dropout_prob=0.0)
+
+
+def bucket_of(example):
+    """The bucket ``bucketed_batch_iterator`` bins an example into."""
+    n = len(example["src_idx"])
+    return next((b for b in BUCKETS if n <= b), BUCKETS[-1])
+
+
+@contextlib.contextmanager
+def bucket_steps():
+    """``Trainer.train_step`` and ``Trainer.fit`` recorded with no device
+    sync (the loss is kept as a tensor, so ``fit``'s dispatch times are the
+    CLI's): each step's bucket length, launches of the four train kernels
+    and loss, and each ``fit``'s summary."""
+    import numpy as np
+
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.training.trainer import Trainer
+
+    rec = {"steps": [], "fits": []}
+    step, fit = Trainer.train_step, Trainer.fit
+
+    def train_step(self, batch):
+        before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+        loss = step(self, batch)
+        rec["steps"].append((np.shape(batch["src_idx"])[1],
+                             [fn.launches - n for fn, n in
+                              zip(tbt.KERNEL_WRAPPERS, before)],
+                             loss.detach()))
+        return loss
+
+    def recording_fit(self, batches, **kw):
+        out = fit(self, batches, **kw)
+        rec["fits"].append(out)
+        return out
+
+    Trainer.train_step, Trainer.fit = train_step, recording_fit
+    try:
+        yield rec
+    finally:
+        Trainer.train_step, Trainer.fit = step, fit
+
+
+def trace_kernel_names(trace_dir):
+    """The CUDA kernel names of the one Chrome trace in ``trace_dir``."""
+    import glob
+
+    paths = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    if len(paths) != 1:
+        fail(f"buckets: {len(paths)} trace files in {trace_dir}, expected 1")
+    with open(paths[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    log(f"buckets: trace {os.path.basename(paths[0])}: "
+        f"{os.path.getsize(paths[0]) / 2 ** 20:.1f} MiB, {len(events)} events, "
+        f"{len(names)} kernel names")
+    return names
+
+
+def convergence(device, card):
+    """tests/test_convergence.py's recipe on the card through the kernels:
+    a tiny float32 arch3, 150 steps at batch 64 on the learnable confusion
+    data (lr 3e-3, warmup 20, clip 1.0), held-out F1 on 96 sentences.
+    Returns the kernels' launches over the run and its eval."""
+    import math
+
+    import torch
+
+    from realise_tpu_torch.cli.common import evaluate_model
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.data.dataset import (batch_iterator,
+                                                synthetic_confusion_dataset)
+    from realise_tpu_torch.data.features import Featurizer
+    from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.text.glyphs import build_glyph_table
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import build_synthetic_vocab, vocab_to_dict
+    from realise_tpu_torch.training.trainer import Trainer
+
+    cfg = config_for(ARCH3, **CONVERGENCE_CFG)
+    vocab = build_synthetic_vocab(size=cfg.vocab_size)
+    tok = WordPieceTokenizer(vocab_to_dict(vocab))
+    feat = Featurizer(tok, cfg)
+    train = synthetic_confusion_dataset(tok, num_examples=512, max_len=12, seed=1)
+    heldout = synthetic_confusion_dataset(tok, num_examples=96, max_len=12,
+                                          seed=2)
+    model = Realise(cfg, generator=torch.Generator().manual_seed(0))
+    model.install_glyphs(build_glyph_table(vocab, num_fonts=1,
+                                           use_traditional_font=False))
+    model.install_pho_vocab_tables(*feat.pho2_tables())
+    trainer = Trainer(cfg, model, learning_rate=3e-3, warmup_steps=20,
+                      total_steps=150, max_grad_norm=1.0, seed=11,
+                      device=device)
+    if not trainer.use_kernels:
+        fail("convergence: the Trainer did not turn the kernels on")
+
+    def batches():
+        epoch = 0
+        while True:
+            for ex in batch_iterator(train, 64, shuffle=True, seed=epoch):
+                yield feat.device_batch(feat.featurize(ex))
+            epoch += 1
+
+    wrappers = (bb.attention_block, bb.ffn_block) + tuple(tbt.KERNEL_WRAPPERS)
+    for fn in wrappers:
+        fn.launches = 0
+    t = time.perf_counter()
+    summary = trainer.fit(batches(), max_steps=150, logging_steps=0)
+    train_s = time.perf_counter() - t
+    with tempfile.TemporaryDirectory() as out:
+        res = evaluate_model(trainer, heldout, feat, tok, out, batch_size=32)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    layers = encoder_layers(cfg)
+    log(f"convergence: 150 steps in {train_s:.2f} s, final loss "
+        f"{summary['final_loss']:.4f}; held-out sent-correct-f1 "
+        f"{res['sent-correct-f1']:.2f}, sent-detect-f1 "
+        f"{res['sent-detect-f1']:.2f}; launches {launches} [{card}]")
+    want = [150 * layers] * 4 + [layers * -(-len(heldout) // 32)] * 2
+    if [launches[fn.__name__] for fn in tuple(tbt.KERNEL_WRAPPERS)
+            + (bb.attention_block, bb.ffn_block)] != want:
+        fail(f"convergence: launches {launches}, expected {want} (train x4, "
+             f"serving x2)")
+    if not (math.isfinite(summary["final_loss"])
+            and res["sent-correct-f1"] > 50 and res["sent-detect-f1"] > 50):
+        fail(f"convergence: final loss {summary['final_loss']}, held-out {res}")
+    return launches
+
+
+def buckets(device, card, gen):
+    """Phase 8b: training at the bucket lengths. The four train kernels
+    against their plain versions at B=256, S=32 and 64; ``cli/train
+    --length_buckets 32,64,128 --trace_dir --trace_steps 3 --do_eval`` at
+    full width (arch3, bf16, dropout 0.1, B=256) for an epoch of 3072
+    sentences of 20-100 chars: every bucket reached, 19 launches of each
+    train kernel a step, the trace naming each train kernel's CUDA
+    functions; per bucket at B=256 and 32 a step's host clock, CUDA events,
+    kernels and peak memory; two backward calls at S=32 and 64 the same
+    bits; ``fit``'s dispatch percentiles at B=256 (the CLI) and 32; an
+    epoch's sentences/s bucketed and padded to 128; then the convergence
+    recipe on the card. Returns the kernels' launches on the phase's path
+    (the CLI run and the convergence run) and the worst relative error of
+    the kernel checks."""
+    import math
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.cli import train as cli_train
+    from realise_tpu_torch.cli.common import zero_padding_loss
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.data.dataset import (batch_iterator,
+                                                bucketed_batch_iterator,
+                                                pad_examples,
+                                                synthetic_dataset)
+    from realise_tpu_torch.data.features import Featurizer
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+    from realise_tpu_torch.training.trainer import Trainer
+
+    started = time.perf_counter()
+    # 1. The train kernels at B=256 and the two short buckets, a quarter of
+    # the rows padded (1 to 7 eighths of S valid).
+    shapes = [(256, s, [s if i % 4 else s * (1 + i % 7) // 8 for i in range(256)])
+              for s in (32, 64)]
+    worst = check_train_kernels(device, gen, shapes)
+
+    # 2. cli/train over the bucketed epoch, traced, then scored.
+    cfg = config_for(ARCH3, vocab_size=21128, dtype="bfloat16")
+    layers = encoder_layers(cfg)
+    vocab = build_synthetic_vocab(size=cfg.vocab_size,
+                                  cjk_chars=REAL_VOCAB_CJK_CHARS)
+    tok = WordPieceTokenizer(vocab_to_dict(vocab))
+    data = synthetic_dataset(tok, num_examples=3072, min_len=20, max_len=100,
+                             seed=SEED + 900)
+    dev = synthetic_dataset(tok, num_examples=256, min_len=20, max_len=100,
+                            seed=SEED + 901)
+    epoch = list(bucketed_batch_iterator(data, 256, buckets=BUCKETS,
+                                         shuffle=True, seed=SEED,
+                                         pad_final=False))
+    counts = {b: sum(bucket_of(ex) == b for ex in data) for b in BUCKETS}
+    wrappers = (bb.attention_block, bb.ffn_block) + tuple(tbt.KERNEL_WRAPPERS)
+    with tempfile.TemporaryDirectory() as root:
+        with open(os.path.join(root, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(vocab) + "\n")
+        for name, examples in (("train.pkl", data), ("dev.pkl", dev)):
+            with open(os.path.join(root, name), "wb") as f:
+                pickle.dump(examples, f)
+        trace_dir = os.path.join(root, "trace")
+        argv = ["--data_dir", root, "--train_file", "train.pkl", "--dev_file",
+                "dev.pkl", "--dtype", "bfloat16", "--seed", str(SEED),
+                "--length_buckets", ",".join(map(str, BUCKETS)),
+                "--trace_dir", trace_dir, "--trace_steps", "3",
+                "--per_device_train_batch_size", "256",
+                "--num_train_epochs", "1", "--logging_steps", "0",
+                "--save_steps", "100000", "--do_train", "--do_eval",
+                "--eval_batch_size", "32", "--output_dir",
+                os.path.join(root, "out")]
+        for fn in wrappers:
+            fn.launches = 0
+        t = time.perf_counter()
+        with bucket_steps() as rec:
+            rc = cli_train.main(argv)
+        cli_s = time.perf_counter() - t
+        launches = {fn.__name__: fn.launches for fn in wrappers}
+        if rc != 0:
+            fail(f"buckets: cli/train exited {rc}")
+        names = trace_kernel_names(trace_dir)
+        with open(os.path.join(root, "out", "dev_results.json")) as f:
+            dev_res = json.load(f)
+    torch.cuda.empty_cache()
+    steps = [(s, n, float(loss)) for s, n, loss in rec["steps"]]
+    log(f"buckets: cli/train {cli_s:.2f} s, {len(data)} sentences by bucket "
+        f"{counts}, {len(steps)} steps at lengths {[s for s, _, _ in steps]}, "
+        f"launches {launches}; dev {dev_res}")
+    if [s for s, _, _ in steps] != [b for b, _ in epoch]:
+        fail(f"buckets: the CLI's step lengths {[s for s, _, _ in steps]} are "
+             f"not the epoch's buckets {[b for b, _ in epoch]}")
+    if set(s for s, _, _ in steps) != set(BUCKETS):
+        fail("buckets: the epoch did not reach every bucket")
+    bad = [(s, n) for s, n, _ in steps if n != [layers] * 4]
+    if bad:
+        fail(f"buckets: train kernels launched {bad[:4]} times in a step, "
+             f"expected {layers} each at every bucket")
+    if not all(math.isfinite(loss) for _, _, loss in steps):
+        fail(f"buckets: losses {[loss for _, _, loss in steps]}")
+    serving_want = layers * -(-len(dev) // 32)
+    if [launches[fn.__name__] for fn in (bb.attention_block, bb.ffn_block)] \
+            != [serving_want] * 2:
+        fail(f"buckets: serving kernels {launches}, expected {serving_want}")
+    missing = {k: [m for m in want if not any(m in n for n in names)]
+               for k, want in TRACE_NAMES.items()}
+    log(f"buckets: the trace's train kernel functions missing: {missing}")
+    if any(missing.values()):
+        fail(f"buckets: the trace lacks train kernel functions {missing}")
+    traced, rest = rec["fits"]
+    if traced["steps"] != 3:
+        fail(f"buckets: the traced fit ended at step {traced['steps']}")
+    cli_dispatch = rest["dispatch"]
+
+    # 3. Per bucket at B=256 and 32: a step's host clock, events, kernels,
+    # peak memory; the equal-bits check at S=32 and 64.
+    feat = Featurizer(tok, cfg)
+    model = seeded_model(cfg, SEED + 902)
+    trainer = Trainer(cfg, model, learning_rate=5e-5, warmup_steps=2,
+                      total_steps=1000, weight_decay=0.01, max_grad_norm=1.0,
+                      device=device, seed=SEED)
+    binned = {b: [ex for ex in data if bucket_of(ex) == b] for b in BUCKETS}
+    rows = {}
+    for b in (256, 32):
+        for s in BUCKETS:
+            batch = feat.device_batch(feat.featurize(
+                pad_examples(binned[s][:b], b), seq_len=s))
+            rows[b, s] = step_split(trainer, batch, f"bucket {s}", card)
+            if b == 256 and s < 128:
+                check_stream_determinism(trainer, batch, f"B=256 S={s}")
+
+    def featurized(batches):
+        """(length, examples, batch size) → host batches, each padded to
+        its size with the padded rows' loss zeroed, as cli/train does."""
+        return [feat.device_batch(zero_padding_loss(feat.featurize(
+            pad_examples(ex, size), seq_len=s), len(ex)))
+            for s, ex, size in batches]
+
+    # 4. fit's dispatch at B=32 over 30 bucketed batches, and the share of
+    # its wall clock the card spends in kernels (each batch counted at its
+    # bucket's profiled kernel time above).
+    small = [(s, ex, 32) for s, ex in bucketed_batch_iterator(
+        data, 32, buckets=BUCKETS, shuffle=True, seed=SEED + 1,
+        pad_final=False)][:30]
+    sync(device)
+    small_fit = trainer.fit(featurized(small), logging_steps=0)
+    busy32 = sum(rows[32, s]["kernel_ms"] for s, _, _ in small)
+    # 5. The epoch bucketed, and padded to 128 (the same sentences, in
+    # batch_iterator's order for the epoch's seed), through fit.
+    rates = {}
+    for name, batches in (
+            ("bucketed", [(s, ex, 256) for s, ex in epoch]),
+            ("padded to 128", [(128, ex, 256) for ex in batch_iterator(
+                data, 256, shuffle=True, seed=SEED, pad_final=False)])):
+        host = featurized(batches)
+        sync(device)
+        out = trainer.fit(host, logging_steps=0)
+        rates[name] = (len(data) / out["wall_time_s"], len(host), out)
+    busy256 = sum(rows[256, s]["kernel_ms"] for s, _ in epoch)
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    # 6. The convergence recipe on the card.
+    for name, n in convergence(device, card).items():
+        launches[name] += n
+
+    log("buckets table: B | S | step ms, host | step ms, events | kernels ms "
+        f"| peak GiB | sentences/s (host) [{card}]")
+    for (b, s), r in rows.items():
+        log(f"  | {b} | {s} | {r['host_ms']:.3f} | {r['step_ms']:.3f} | "
+            f"{r['kernel_ms']:.3f} | {r['peak_gib']:.2f} | "
+            f"{b / r['host_ms'] * 1e3:.1f} |")
+    log(f"buckets: cli/train fit dispatch at B=256 after its 3 traced steps: "
+        f"{cli_dispatch['steps']} steps, p50 {1e3 * cli_dispatch['p50_s']:.3f} "
+        f"ms, p95 {1e3 * cli_dispatch['p95_s']:.3f} ms, mean "
+        f"{1e3 * cli_dispatch['mean_s']:.3f} ms; {rest['steps_per_sec']:.2f} "
+        f"steps/s [{card}]")
+    d = small_fit["dispatch"]
+    log(f"buckets: fit at B=32 over {len(small)} bucketed batches: dispatch "
+        f"p50 {1e3 * d['p50_s']:.3f} ms, p95 {1e3 * d['p95_s']:.3f} ms; wall "
+        f"{1e3 * small_fit['wall_time_s']:.3f} ms against {busy32:.3f} ms of "
+        f"kernels ({busy32 / 1e3 / small_fit['wall_time_s']:.1%} busy) "
+        f"[{card}]")
+    for name, (rate, n, out) in rates.items():
+        d = out["dispatch"]
+        log(f"buckets: epoch {name}: {len(data)} sentences in {n} steps, "
+            f"{out['wall_time_s']:.3f} s, {rate:.1f} sentences/s; dispatch "
+            f"p50 {1e3 * d['p50_s']:.3f} ms, p95 {1e3 * d['p95_s']:.3f} ms "
+            f"[{card}]")
+    wall = rates["bucketed"][2]["wall_time_s"]
+    log(f"buckets: bucketed epoch {busy256:.3f} ms of kernels in "
+        f"{1e3 * wall:.3f} ms of wall clock ({busy256 / 1e3 / wall:.1%} "
+        f"busy); bucketed / padded sentences/s "
+        f"{rates['bucketed'][0] / rates['padded to 128'][0]:.3f}; phase "
+        f"{time.perf_counter() - started:.1f} s [{card}]")
+    return launches, worst
+
+
 # ------------------------------------------------------ the pretraining stages
 def pretrain_config(model_type):
     from realise_tpu_torch.config import config_for
@@ -2464,11 +2837,17 @@ def main() -> int:
     check_stream_determinism(trainer, train_batches(cfg, 1, 32, SEED + 6)[0])
     del trainer
     torch.cuda.empty_cache()
+    bucket_launches, worst_buckets = buckets(device, card, gen)
+    for key, err in worst_buckets.items():
+        worst_train[key] = max(worst_train[key], err)
+    torch.cuda.empty_cache()
     resume(device, cfg, card)
     torch.cuda.empty_cache()
     presets(device, card)
     torch.cuda.empty_cache()
     for name, n in pretraining(device, card).items():
+        launches[name] += n
+    for name, n in bucket_launches.items():
         launches[name] += n
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"

@@ -44,14 +44,12 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
 
 # Flags of the JAX CLIs whose parts are not ported yet → (how the parser
 # takes them, the ROADMAP queue A item that ports them): multi-GPU data
-# parallelism (6), and length buckets and step traces in training (9).
+# parallelism (6). Each CLI takes those of its JAX counterpart
+# (``add_unported``): every one with the common arguments and cli/test
+# ``--mesh``, cli/train ``--distributed`` too.
 UNPORTED: Dict[str, Tuple[dict, str]] = {
     "--mesh": ({}, "6 (multi-GPU data parallel)"),
     "--distributed": (dict(action="store_true"), "6 (multi-GPU data parallel)"),
-    "--length_buckets": ({}, "9 (length buckets and step traces in training)"),
-    "--trace_dir": ({}, "9 (length buckets and step traces in training)"),
-    "--trace_steps": (dict(type=int),
-                      "9 (length buckets and step traces in training)"),
 }
 
 
@@ -92,16 +90,23 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="synthetic vocab + dataset (no corpus assets needed)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model dims for smoke tests")
-    for flag, (kw, item) in UNPORTED.items():
+    add_unported(p, "--mesh")
+    return p
+
+
+def add_unported(p: argparse.ArgumentParser, *flags: str) -> None:
+    """Take ``flags`` (keys of ``UNPORTED``), so that ``reject_unported``
+    names their ROADMAP item instead of argparse calling them unknown."""
+    for flag in flags:
+        kw, item = UNPORTED[flag]
         p.add_argument(flag, default=None, **kw,
                        help=f"not ported yet (ROADMAP queue A item {item})")
-    return p
 
 
 def reject_unported(args: argparse.Namespace) -> None:
     """Exit naming the ROADMAP item of every unported flag that was given."""
     given = [(flag, item) for flag, (_, item) in UNPORTED.items()
-             if getattr(args, flag[2:]) not in (None, False)]
+             if getattr(args, flag[2:], None) not in (None, False)]
     if given:
         raise SystemExit("; ".join(
             f"{flag} is not ported to realise_tpu_torch yet (ROADMAP queue A "
@@ -139,14 +144,21 @@ def build_config(args, vocab_size: int) -> RealiseConfig:
     return config_for(args.model_type, **overrides)
 
 
+def resolve_vocab_path(vocab_path: Optional[str],
+                       data_dir: Optional[str]) -> Optional[str]:
+    """--vocab_path, else data_dir/vocab.txt when it exists (the tokenizer
+    builder's and cli/correct's rule, as in the JAX package)."""
+    if vocab_path is None and data_dir:
+        cand = os.path.join(data_dir, "vocab.txt")
+        if os.path.exists(cand):
+            return cand
+    return vocab_path
+
+
 def build_tokenizer(args) -> WordPieceTokenizer:
     """--vocab_path, else data_dir/vocab.txt, else (--synthetic) the
     synthetic vocab the Corrector builds for ``synthetic_vocab=True``."""
-    path = args.vocab_path
-    if path is None and args.data_dir:
-        cand = os.path.join(args.data_dir, "vocab.txt")
-        if os.path.exists(cand):
-            path = cand
+    path = resolve_vocab_path(args.vocab_path, args.data_dir)
     if path:
         return WordPieceTokenizer.from_pretrained(path)
     if not args.synthetic:

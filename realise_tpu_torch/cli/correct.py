@@ -23,6 +23,9 @@ def build_parser():
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--ckpt_dir", required=True)
     p.add_argument("--vocab_path", default=None)
+    p.add_argument("--data_dir", default=None,
+                   help="reads data_dir/vocab.txt when --vocab_path is not "
+                        "given")
     p.add_argument("--input", default=None, help="file of sentences (default stdin)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--show_edits", action="store_true",
@@ -48,10 +51,13 @@ def _line(r) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    from realise_tpu_torch.cli.common import resolve_vocab_path
     from realise_tpu_torch.serving import Corrector
 
     corrector = Corrector(
-        args.ckpt_dir, vocab_path=args.vocab_path, batch_size=args.batch_size,
+        args.ckpt_dir,
+        vocab_path=resolve_vocab_path(args.vocab_path, args.data_dir),
+        batch_size=args.batch_size,
         use_kernels=False if args.no_kernels else None,
         fast_path=not args.no_fast_path, synthetic_vocab=args.synthetic,
         device=args.device, native_featurizer=args.native_featurizer)

@@ -23,10 +23,12 @@ import os
 import torch
 
 from realise_tpu_torch.cli.common import (
+    add_unported,
     build_tokenizer,
     evaluate_model,
     load_dataset,
     logger,
+    reject_unported,
     setup_logging,
     write_json,
 )
@@ -53,6 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; 'cpu' to run on the CPU)")
     p.add_argument("--no_kernels", action="store_true",
                    help="plain PyTorch sub-blocks instead of the fused kernels")
+    add_unported(p, "--mesh")
     return p
 
 
@@ -80,6 +83,7 @@ def select_checkpoint(ckpt_dir: str, ckpt_num: int):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    reject_unported(args)
     setup_logging()
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device

@@ -14,7 +14,14 @@ optimizer's state, the step and the dropout generator's state
 (``trainer.pt``) and the run's arguments (``training_args.json``), so
 ``--resume`` continues the run from the newest checkpoint in
 ``--output_dir``: step k trains on batch k and draws step k's dropout masks,
-as the uninterrupted run would. ``--init_ckpt`` starts from a checkpoint's
+as the uninterrupted run would. ``--length_buckets 32,64,128`` batches
+the examples by length (``data/dataset.bucketed_batch_iterator``) and
+featurizes each batch at its bucket's length instead of
+``--max_seq_length``; an epoch is then the iterator's batches, each bucket
+ending with a short one of its own. ``--trace_dir`` writes a
+``torch.profiler`` trace of the first ``--trace_steps`` steps (the host
+and, on CUDA, every kernel), then the same stream goes on untraced.
+``--init_ckpt`` starts from a checkpoint's
 weights with a fresh optimizer at step 0 (a ``cli/merge`` checkpoint, the
 reference's recipe); ``--pho_ckpt``/``--res_ckpt`` then overlay the
 pretraining stages' encoders on the initial weights as ``cli/merge`` does
@@ -35,6 +42,7 @@ import torch
 
 from realise_tpu_torch.cli.common import (
     add_common_args,
+    add_unported,
     build_config,
     build_glyphs,
     build_tokenizer,
@@ -89,13 +97,24 @@ def build_parser() -> argparse.ArgumentParser:
                    default=True)
     p.add_argument("--num_save_ckpts", type=int, default=5)
     p.add_argument("--remove_unused_ckpts", action="store_true")
+    p.add_argument("--length_buckets", default=None,
+                   help="comma-separated padded lengths (e.g. '32,64,128'): "
+                        "length-bucketed batching, each batch featurized at "
+                        "its bucket's length, instead of always padding to "
+                        "max_seq_length")
     p.add_argument("--no_prefetch", action="store_true",
                    help="featurize on the training thread")
+    p.add_argument("--trace_dir", default=None,
+                   help="capture a torch.profiler trace of the first "
+                        "--trace_steps training steps into this directory "
+                        "(a Chrome trace that Perfetto and TensorBoard load)")
+    p.add_argument("--trace_steps", type=int, default=5)
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in output_dir, "
                         "restoring params, BN stats, Adam moments, the step "
                         "counter and the dropout generator (the reference "
                         "loses optimizer state on restart)")
+    add_unported(p, "--distributed")
     return p
 
 
@@ -105,6 +124,7 @@ def main(argv=None) -> int:
     setup_logging()
     from realise_tpu_torch.data.dataset import (
         batch_iterator,
+        bucketed_batch_iterator,
         pad_examples,
         threaded_prefetch,
     )
@@ -150,7 +170,24 @@ def main(argv=None) -> int:
     # bs × accum examples.
     batch_size = (args.per_device_train_batch_size
                   * args.gradient_accumulation_steps)
-    steps_per_epoch = max(-(-len(train_data) // batch_size), 1)
+    buckets = ([int(x) for x in args.length_buckets.split(",")]
+               if args.length_buckets else None)
+
+    def epoch_batches(epoch):
+        """(bucket length or None, examples) of one epoch, unpadded."""
+        if buckets:
+            return bucketed_batch_iterator(
+                train_data, batch_size, buckets=buckets, shuffle=True,
+                seed=args.seed + epoch, pad_final=False)
+        return ((None, examples) for examples in batch_iterator(
+            train_data, batch_size, shuffle=True, seed=args.seed + epoch,
+            pad_final=False))
+
+    # The batches of an epoch: ceil(N / batch) without buckets; with them,
+    # each bucket's own ceil(n_b / batch), summed, the same in every epoch.
+    # (The JAX CLI counts ceil(N / batch) in both cases, so under buckets
+    # its epochs and its --resume offsets run short: ROADMAP §C.)
+    steps_per_epoch = max(sum(1 for _ in epoch_batches(0)), 1)
     total_steps = (args.max_steps if args.max_steps > 0
                    else int(steps_per_epoch * args.num_train_epochs))
     trainer = Trainer(
@@ -180,14 +217,13 @@ def main(argv=None) -> int:
         # and its offset skipped before featurizing (skipping is free).
         epoch, skip = divmod(trainer.step, steps_per_epoch)
         while True:
-            for i, examples in enumerate(batch_iterator(
-                    train_data, batch_size, shuffle=True,
-                    seed=args.seed + epoch, pad_final=False)):
+            for i, (seq_len, examples) in enumerate(epoch_batches(epoch)):
                 if i < skip:
                     continue
-                # Pad a short final batch here (fixed shapes) and zero the
-                # padded rows' loss.
-                feed = featurizer.featurize(pad_examples(examples, batch_size))
+                # Pad a short batch here (fixed shapes) and zero the padded
+                # rows' loss; a bucket's batch takes the bucket's length.
+                feed = featurizer.featurize(pad_examples(examples, batch_size),
+                                            seq_len=seq_len)
                 feed = zero_padding_loss(feed, len(examples))
                 yield featurizer.device_batch(feed)
             skip = 0
@@ -206,9 +242,27 @@ def main(argv=None) -> int:
                     "kernels %s", len(train_data), batch_size, total_steps,
                     device, trainer.use_kernels)
         stream = batches() if args.no_prefetch else threaded_prefetch(batches())
-        summary = trainer.fit(stream, max_steps=total_steps,
-                              logging_steps=args.logging_steps,
-                              save_steps=args.save_steps, save_fn=save_fn)
+        fit_kw = dict(logging_steps=args.logging_steps,
+                      save_steps=args.save_steps, save_fn=save_fn)
+        try:
+            if args.trace_dir:
+                # The first steps under the profiler, then the same stream
+                # untraced: fit holds no batch back, so step k still trains
+                # on batch k. The kernels are built and loaded first, so
+                # the trace holds steps and not the compiler.
+                from realise_tpu_torch.utils.profiler import trace
+
+                if trainer.use_kernels:
+                    from realise_tpu_torch.ops.kernels._build import load
+
+                    load("bert_block_train")
+                with trace(args.trace_dir, device):
+                    trainer.fit(stream, max_steps=min(
+                        trainer.step + args.trace_steps, total_steps), **fit_kw)
+                logger.info("wrote the profiler trace to %s", args.trace_dir)
+            summary = trainer.fit(stream, max_steps=total_steps, **fit_kw)
+        finally:
+            stream.close()  # stops and joins the prefetch worker
         logger.info("train summary: %s", summary)
         save_fn(trainer.step, trainer)
 

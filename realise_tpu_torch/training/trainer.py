@@ -238,15 +238,33 @@ class Trainer:
     ) -> Dict[str, float]:
         """Train over an iterable of host batches; returns summary stats. The
         loss is read back (a device sync) only at logging steps and at the
-        end."""
+        end.
+
+        ``dispatch`` holds the percentiles of each ``train_step``'s time on
+        the host clock after two warm-up steps (``StepTimer(warmup=2)``, as
+        the JAX ``fit``). On CUDA it is the host's time to issue a step,
+        with no added sync; but a step's batch goes to the card by blocking
+        copies (``to_device``), which first wait for the card to finish the
+        work already queued. So a step's dispatch time also holds what the
+        card had left of the step before: it reads the device's step time
+        where the card is the bound, and more where the host is. No batch
+        is held back between calls: a second ``fit`` on the same stream
+        starts at the next batch."""
+        from realise_tpu_torch.utils.profiler import StepTimer
+
+        timer = StepTimer(warmup=2)
         count = 0
         t0 = time.time()
         loss = None
         last_loss = float("nan")
-        for batch in batches:
-            if max_steps is not None and self.step >= max_steps:
-                break  # a resumed run that has already reached max_steps
-            loss = self.train_step(batch)
+        batches = iter(batches)
+        # A run that has reached max_steps (a resumed one) takes no batch.
+        while max_steps is None or self.step < max_steps:
+            batch = next(batches, None)
+            if batch is None:
+                break
+            with timer:
+                loss = self.train_step(batch)
             count += 1
             step = self.step
             if logging_steps and step % logging_steps == 0:
@@ -257,11 +275,10 @@ class Trainer:
                 (log_fn or (lambda r: logger.info("%s", r)))(rec)
             if save_steps and save_fn and step % save_steps == 0:
                 save_fn(step, self)
-            if max_steps is not None and step >= max_steps:
-                break
         if loss is not None:
             last_loss = float(loss)
         wall = time.time() - t0
         return {"steps": self.step, "final_loss": last_loss,
                 "wall_time_s": wall,
-                "steps_per_sec": count / wall if wall > 0 else 0.0}
+                "steps_per_sec": count / wall if wall > 0 else 0.0,
+                "dispatch": timer.summary()}

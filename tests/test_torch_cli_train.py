@@ -1,6 +1,9 @@
 """The port's training CLI (realise_tpu_torch/cli/train.py) and the data and
 glyph copies it runs on, against the JAX package's."""
 
+import threading
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -53,6 +56,30 @@ def test_batching_pads_and_prefetch_propagates():
         list(tdata.threaded_prefetch(boom()))
 
 
+@pytest.mark.parametrize("blocked", ["on the full queue",
+                                     "inside the source iterator"])
+def test_prefetch_worker_is_joined_on_close(blocked):
+    """Closing the stream stops the worker and joins it: one waiting to put
+    into the full queue, and one inside the source's ``next`` (joined once
+    that item is made, 0.5 s here)."""
+    release = threading.Event()
+
+    def source():
+        for i in range(10 ** 6):
+            if blocked == "inside the source iterator" and i == 1:
+                release.wait(0.5)
+            yield i
+
+    before = set(threading.enumerate())
+    stream = tdata.threaded_prefetch(source(), size=2)
+    assert next(stream) == 0
+    (worker,) = [t for t in threading.enumerate() if t not in before]
+    time.sleep(0.3)  # the queue fills, or the worker waits in the source
+    assert worker.is_alive()
+    stream.close()
+    assert not worker.is_alive()
+
+
 def test_cli_trains_and_the_corrector_serves(tmp_path):
     """--synthetic --tiny --max_steps 2 on the CPU writes a port checkpoint
     that the Corrector loads and serves."""
@@ -78,9 +105,9 @@ def test_cli_refuses_unported_flags_and_missing_cuda(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="ROADMAP queue A item 6"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
                      "--distributed"])
-    with pytest.raises(SystemExit, match="--length_buckets .*item 9"):
+    with pytest.raises(SystemExit, match="--mesh .*item 6"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
-                     "--length_buckets", "32,64"])
+                     "--mesh", "data:2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.main(["--synthetic", "--tiny", "--max_steps", "1",

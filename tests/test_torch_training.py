@@ -25,7 +25,8 @@ from realise_tpu_torch.models.convert import state_dict_from_jax
 from realise_tpu_torch.ops import resnet as tresnet
 from realise_tpu_torch.training import optim as toptim
 from realise_tpu_torch.training.trainer import Trainer
-from torch_port_fixtures import live_glyph_features, live_glyph_rows
+from torch_port_fixtures import (live_glyph_features, live_glyph_rows,
+                                 one_intra_op_thread)
 
 V, B, S = 80, 4, 10
 CFG = config_for("bert-pho2-res-arch3", vocab_size=V, hidden_size=16,
@@ -322,3 +323,48 @@ def test_trainer_fit_and_device_rules(jax_model, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(PCFG, _port_model(params, state))
+
+
+def test_fit_dispatch_matches_jax_fit(jax_model):
+    """``fit`` returns the JAX ``fit``'s keys, ``dispatch`` among them with
+    the JAX ``StepTimer`` summary's keys; four steps after a warm-up window
+    of two leave two timed steps on both sides."""
+    params, state = jax_model
+    batches = [_batch(20 + i) for i in range(4)]
+    kw = dict(learning_rate=1e-5, warmup_steps=1, total_steps=10)
+    jt = JaxTrainer(CFG, jax.tree.map(jnp.asarray, params),
+                    jax.tree.map(jnp.asarray, state), use_pallas=True, **kw)
+    want = jt.fit(iter(batches), max_steps=4, logging_steps=0)
+    tt = Trainer(PCFG, _port_model(params, state), use_kernels=True,
+                 device="cpu", **kw)
+    with one_intra_op_thread():
+        got = tt.fit(iter(batches), max_steps=4, logging_steps=0)
+    assert set(got) == set(want)
+    assert set(got["dispatch"]) == set(want["dispatch"])
+    assert got["dispatch"]["steps"] == want["dispatch"]["steps"] == 2
+    assert not got["dispatch"]["includes_warmup"]
+    assert got["dispatch"]["p95_s"] >= got["dispatch"]["p50_s"] > 0
+    np.testing.assert_allclose(got["final_loss"], want["final_loss"], atol=1e-5)
+
+
+def test_fit_takes_no_batch_past_max_steps(jax_model):
+    """A second ``fit`` on the same stream starts at the next batch (the
+    traced first steps of ``cli/train``), and a ``fit`` already at its
+    ``max_steps`` takes none: step k trains on batch k."""
+    params, state = jax_model
+    taken = []
+
+    def stream():
+        for i in range(6):
+            taken.append(i)
+            yield _batch(30 + i)
+
+    tt = Trainer(PCFG, _port_model(params, state), learning_rate=1e-3,
+                 device="cpu", use_kernels=False)
+    it = stream()
+    with one_intra_op_thread():
+        tt.fit(it, max_steps=2, logging_steps=0)
+        tt.fit(it, max_steps=2, logging_steps=0)
+        assert taken == [0, 1] and tt.step == 2
+        tt.fit(it, max_steps=4, logging_steps=0)
+    assert taken == [0, 1, 2, 3] and tt.step == 4

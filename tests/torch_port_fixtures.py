@@ -1,5 +1,7 @@
 """Helpers the port's tests share (tests/test_torch_*.py)."""
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -27,3 +29,17 @@ def live_glyph_rows(model) -> int:
         feats = model.res_features(ids).float()
     model.train(was_training)
     return int((feats.abs().sum(1) > 0).sum())
+
+
+@contextlib.contextmanager
+def one_intra_op_thread():
+    """Run the enclosed tiny-model work on one intra-op thread. At the
+    tests' widths one thread is about as fast as eight alone, and many
+    times faster while the test workers share the CPU, each with its own
+    threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)

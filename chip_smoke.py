@@ -149,7 +149,31 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    initial bits and loss traces, and ``cli/test`` on the merged run; then a
    step of each stage timed (host clock, CUDA events, profiled kernels,
    peak memory), the merge's seconds and the evals' sentences/s and
-   chars/s. The kernels' launches on the phase's path join the record.
+   chars/s. The kernels' launches on the phase's path join the record;
+13. full width against the JAX package: the published arch3 on weights
+   and pinyin tables made by ``models.convert.seeded_weights`` from the
+   seed of ``tests/golden/port_fullwidth_arch3.npz`` (the JAX package's
+   float32 outputs on them, written by tests/test_torch_fullwidth.py; read
+   with numpy here), on the card. Fails when the weights' per-tensor
+   float64 sums and sums of squares on the card differ from the file's
+   (checked first, so a weight mismatch reads as such); when the kernel
+   path in float32 (``Realise``, with and without the inference tables)
+   puts a logit at the golden top-8 ids or 64 columns, or a gate, further
+   than ``FULLWIDTH_F32_TOL`` from the file's; when the kernel path in
+   bfloat16 (``Realise`` both ways, and the ``Corrector``'s tables path)
+   changes the top-1 id at a position whose golden top-2 margin exceeds
+   ``FULLWIDTH_BF16_TOL``, or puts a logit further than that from the
+   file's; or when a forward does not launch each serving kernel once per
+   encoder layer;
+14. the recipe from raw corpus files: ``cli/prepare_data`` on a fabricated
+   SIGHAN training SGML and a SIGHAN test input with its truth file (TSV,
+   label files, pkl), ``cli/train --do_train --do_eval`` of the published
+   arch3 (bf16) for 4 steps on that pkl, scored on the test pkl with the
+   produced label file, then ``cli/test``. Fails on a non-zero exit, on
+   files whose line or example counts differ from the corpus's, on a
+   non-finite loss or score, or when a step does not launch each train
+   kernel once per encoder layer or an eval batch each serving kernel; the
+   seconds of each step are printed. Both phases' launches join the record.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -161,6 +185,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -2785,6 +2810,342 @@ def pretraining(device, card):
     return launches
 
 
+# ------------------------------------------- full width against the JAX package
+GOLDEN = os.path.join("tests", "golden", "port_fullwidth_arch3.npz")
+# Phase 13's limits against the JAX package's float32 outputs (the golden
+# file). float32 kernel path: every logit at the golden top-8 ids and its 64
+# columns and every gate within FULLWIDTH_F32_TOL, phase 3's float32
+# kernel-vs-plain limit (an H100 read 1.6e-5 to 1.8e-5). bfloat16: the top-1
+# id equal to the golden one at every valid position whose golden top-2
+# margin exceeds FULLWIDTH_BF16_TOL, and no logit further than that from the
+# golden value (an H100 read 8.4e-2 to 9.4e-2 after 19 bf16 layers; 8 bf16
+# ulps at |logit| in [4, 8)).
+FULLWIDTH_F32_TOL = 1e-4
+FULLWIDTH_BF16_TOL = 0.25
+DIGEST_RTOL, DIGEST_ATOL = 1e-9, 1e-6
+
+
+def golden_gaps(label, logits, gates, golden, prefix, masks):
+    """Largest |logit - golden| over the golden top-8 ids and columns, the
+    largest gate gap (None without gates), and the positions whose top-1
+    differs from the golden top-1 among those whose golden margin exceeds
+    FULLWIDTH_BF16_TOL; logged."""
+    import numpy as np
+    import torch
+
+    pos = torch.as_tensor(np.stack(np.nonzero(masks)), device=logits.device)
+    lg = logits.float()[pos[0], pos[1]]
+    top = torch.as_tensor(golden[f"{prefix}_top_ids"], dtype=torch.long,
+                          device=lg.device)
+    cols = torch.as_tensor(golden["cols"], dtype=torch.long, device=lg.device)
+    got = torch.cat([lg.gather(1, top), lg[:, cols]], 1).cpu().numpy()
+    want = np.concatenate([golden[f"{prefix}_top_logits"],
+                           golden[f"{prefix}_col_logits"]], 1)
+    logit_gap = float(np.abs(got - want).max())
+    gate_gap = None
+    if gates is not None:
+        gate_gap = float(np.abs(gates.float()[pos[0], pos[1]].cpu().numpy()
+                                - golden[f"{prefix}_gates"]).max())
+    margin = golden[f"{prefix}_top_logits"][:, 0] - golden[f"{prefix}_top_logits"][:, 1]
+    clear = margin > FULLWIDTH_BF16_TOL
+    flipped = int((lg.argmax(1).cpu().numpy() != golden[f"{prefix}_top_ids"][:, 0])[clear].sum())
+    log(f"fullwidth: {label}: largest logit gap to the JAX package "
+        f"{logit_gap:.3e} over {got.size} logits at {lg.shape[0]} positions"
+        + (f", gates {gate_gap:.3e}" if gate_gap is not None else "")
+        + f"; top-1 differs at {flipped} of the {int(clear.sum())} positions "
+        f"with a golden margin above {FULLWIDTH_BF16_TOL}")
+    return logit_gap, gate_gap, flipped
+
+
+def fullwidth(device, card, ckpt_root):
+    """Phase 13: the published arch3 on numpy-seeded weights against the JAX
+    package's float32 outputs in ``tests/golden/port_fullwidth_arch3.npz``
+    (written by tests/test_torch_fullwidth.py): the weights' digest, then
+    the kernel path in float32 and bfloat16 (``Realise``, with and without
+    the inference tables) and the Corrector's tables path in bfloat16.
+    Returns the serving kernels' launches."""
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.data.features import to_device
+    from realise_tpu_torch.models.convert import seeded_weights
+    from realise_tpu_torch.models.realise import (Realise,
+                                                  precompute_inference_tables)
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.serving import Corrector
+    from realise_tpu_torch.training.checkpoint import save_checkpoint
+
+    started = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with np.load(os.path.join(root, GOLDEN), allow_pickle=False) as f:
+        golden = dict(f)
+    cfg = config_for(str(golden["model_type"]))
+    layers = encoder_layers(cfg)
+    sd, (pho_idx, pho_lens) = seeded_weights(cfg, int(golden["seed"]))
+    t_weights = time.perf_counter() - started
+    on_card = {k: v.to(device) for k, v in sd.items()}
+    tensors = dict(on_card,
+                   vocab_pho_idx=torch.as_tensor(pho_idx, device=device),
+                   vocab_pho_lens=torch.as_tensor(pho_lens, device=device))
+    names = sorted(tensors)
+    if names != list(golden["digest_names"]):
+        fail(f"fullwidth: the seeded tensors' names differ from the golden "
+             f"file's: {sorted(set(names) ^ set(golden['digest_names']))[:8]}")
+    sums = np.asarray([float(tensors[k].double().sum()) for k in names])
+    sumsq = np.asarray([float(tensors[k].double().square().sum()) for k in names])
+    bad = [k for k, a, b, c, d in zip(names, sums, golden["digest_sum"], sumsq,
+                                      golden["digest_sumsq"])
+           if not (np.isclose(a, b, rtol=DIGEST_RTOL, atol=DIGEST_ATOL)
+                   and np.isclose(c, d, rtol=DIGEST_RTOL, atol=DIGEST_ATOL))]
+    log(f"fullwidth: seeded weights (seed {int(golden['seed'])}) {t_weights:.2f} s; "
+        f"digest of {len(names)} tensors on the card against the golden "
+        f"file's: {len(names) - len(bad)} equal (rtol {DIGEST_RTOL})")
+    if bad:
+        fail(f"fullwidth: the weights on the card are not the golden file's: "
+             f"{bad[:8]}")
+
+    keys = ("src_idx", "masks", "pho_idx", "pho_lens")
+    arrays = {k: golden[k] for k in keys}
+    tables_arrays = dict(arrays, src_idx=golden["tables_src_idx"])
+    masks = golden["masks"]
+    serving = (bb.attention_block, bb.ffn_block)
+    launches = dict.fromkeys((fn.__name__ for fn in serving), 0)
+    worst = {}
+
+    def run(label, forward):
+        """forward() once, its serving launches counted: one of each kernel
+        per encoder layer."""
+        before = [fn.launches for fn in serving]
+        t = time.perf_counter()
+        with torch.inference_mode():
+            out = forward()
+        sync(device)
+        dt = time.perf_counter() - t
+        got = [fn.launches - n for fn, n in zip(serving, before)]
+        for fn, n in zip(serving, got):
+            launches[fn.__name__] += n
+        if got != [layers] * 2:
+            fail(f"fullwidth: {label}: serving kernels launched {got} times, "
+                 f"expected {layers} each")
+        log(f"fullwidth: {label}: {1e3 * dt:.3f} ms")
+        return out
+
+    for dtype in ("float32", "bfloat16"):
+        with torch.device("meta"):
+            model = Realise(cfg.replace(dtype=dtype))
+        model.load_state_dict(on_card, assign=True)
+        model.eval()
+        tables = precompute_inference_tables(model, pho_idx, pho_lens)
+        for prefix, batch_arrays, kw in (
+                ("plain", arrays, {}), ("tables", tables_arrays,
+                                        {"tables": tables})):
+            label = f"Realise {dtype}" + (", tables" if kw else "")
+            batch = to_device(batch_arrays, device)
+            out = run(label, lambda: model(batch, use_kernels=True,
+                                           return_gates=True, **kw))
+            worst[label] = golden_gaps(label, out["logits"], out["gates"],
+                                       golden, prefix, masks)
+        del model, tables
+
+    save_checkpoint(ckpt_root, 0, sd, cfg.replace(dtype="bfloat16"))
+    corrector = Corrector(ckpt_root, synthetic_vocab=True, device=device,
+                          fast_path=False)
+    # The Corrector's tables path over the golden file's pinyin tables (its
+    # featurizer's would be the synthetic vocab's).
+    corrector.tables = precompute_inference_tables(corrector.model, pho_idx,
+                                                   pho_lens)
+    logits = run("Corrector bfloat16, tables",
+                 lambda: corrector.logits(tables_arrays))
+    worst["Corrector bfloat16, tables"] = golden_gaps(
+        "Corrector bfloat16, tables", logits, None, golden, "tables", masks)
+    del corrector
+
+    for label, (logit_gap, gate_gap, flipped) in worst.items():
+        if "float32" in label:
+            if max(logit_gap, gate_gap) > FULLWIDTH_F32_TOL:
+                fail(f"fullwidth: {label}: {logit_gap:.3e} / {gate_gap:.3e} "
+                     f"past {FULLWIDTH_F32_TOL}")
+        elif flipped or logit_gap > FULLWIDTH_BF16_TOL:
+            fail(f"fullwidth: {label}: top-1 flipped at {flipped} clear "
+                 f"positions, largest logit gap {logit_gap:.3e} (limit "
+                 f"{FULLWIDTH_BF16_TOL})")
+    log(f"fullwidth: launches {launches}; phase "
+        f"{time.perf_counter() - started:.1f} s [{card}]")
+    return launches
+
+
+# ------------------------------------------------ the recipe from raw files
+def raw_corpus(tok, rng, n_train, n_test):
+    """A fabricated SIGHAN training SGML (tests/test_prepare_data.py's
+    shape: essays of passages, MISTAKE location/WRONG/CORRECTION) and a
+    SIGHAN test input with its truth file (tests/test_corpus.py's), over the
+    vocab's single CJK chars that the t2s fallback leaves as they are."""
+    from realise_tpu_torch.data.corpus import make_t2s
+    from realise_tpu_torch.text.tokenizer import is_chinese_char
+
+    t2s = make_t2s()
+    chars = [t for t in tok.vocab if len(t) == 1 and is_chinese_char(ord(t))
+             and t2s(t) == t]
+
+    def sentence():
+        return "".join(rng.choice(chars, rng.integers(20, 60))) + "。"
+
+    def misspell(s):
+        pos = int(rng.integers(0, len(s) - 1))
+        wrong = rng.choice([c for c in chars[:200] if c != s[pos]])
+        return s[:pos] + wrong + s[pos + 1:], pos + 1, wrong, s[pos]
+
+    essays = []
+    for e in range(0, n_train, 2):
+        passages, mistakes = [], []
+        for j in (1, 2):
+            pid = f"B1-{e:04d}-{j}"
+            s = sentence()
+            if j == 1:
+                s, loc, wrong, right = misspell(s)
+                mistakes.append(f'<MISTAKE id="{pid}" location="{loc}">\n'
+                                f"<WRONG>{wrong}</WRONG>\n"
+                                f"<CORRECTION>{right}</CORRECTION>\n</MISTAKE>")
+            passages.append(f'<PASSAGE id="{pid}">{s}</PASSAGE>')
+        essays.append('<ESSAY title="t">\n<TEXT>\n' + "\n".join(passages)
+                      + "\n</TEXT>\n" + "\n".join(mistakes) + "\n</ESSAY>")
+    inputs, truth = [], []
+    for i in range(n_test):
+        pid = f"A2-{i:04d}-1"
+        s = sentence()
+        if i % 2 == 0:
+            s, loc, _, right = misspell(s)
+            truth.append(f"{pid}, {loc}, {right}")
+        else:
+            truth.append(f"{pid}, 0")
+        inputs.append(f"(pid={pid})\t{s}")
+    return ("\n".join(essays) + "\n", "\n".join(inputs) + "\n",
+            "\n".join(truth) + "\n")
+
+
+def raw_recipe(device, card):
+    """Phase 14: the reference's recipe from raw corpus files on the card.
+    ``cli/prepare_data`` turns a fabricated SIGHAN training SGML (64
+    passages) into TSV, label file and pkl (``--repeat 2``), and a SIGHAN
+    test input with its truth file (64 sentences) into pkl and label file;
+    ``cli/train --do_train --do_eval`` trains the published arch3 (bf16,
+    the published dropout) 4 steps at batch 16 on that pkl and scores its
+    checkpoint on the test pkl with the produced label file; ``cli/test``
+    scores it again. Returns every kernel's launches on the path."""
+    import math
+
+    import numpy as np
+
+    from realise_tpu_torch.cli import prepare_data
+    from realise_tpu_torch.cli import test as cli_test
+    from realise_tpu_torch.cli import train as cli_train
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+    from realise_tpu_torch.training.checkpoint import list_checkpoints
+
+    started = time.perf_counter()
+    wrappers = (bb.attention_block, bb.ffn_block) + tuple(tbt.KERNEL_WRAPPERS)
+    launches = dict.fromkeys((fn.__name__ for fn in wrappers), 0)
+    from realise_tpu_torch.config import config_for
+
+    layers = encoder_layers(config_for(ARCH3))
+    steps, batch, n_train, n_test = 4, 16, 64, 64
+    vocab = build_synthetic_vocab(size=21128, cjk_chars=REAL_VOCAB_CJK_CHARS)
+    tok = WordPieceTokenizer(vocab_to_dict(vocab))
+    sgml, test_input, test_truth = raw_corpus(tok, np.random.default_rng(SEED),
+                                              n_train, n_test)
+    seconds = {}
+
+    def step(label, fn):
+        before = {f.__name__: f.launches for f in wrappers}
+        t = time.perf_counter()
+        rc = fn()
+        seconds[label] = time.perf_counter() - t
+        for f in wrappers:
+            launches[f.__name__] += f.launches - before[f.__name__]
+        if rc != 0:
+            fail(f"raw recipe: {label} exited {rc}")
+
+    with tempfile.TemporaryDirectory() as d:
+        def path(name):
+            return os.path.join(d, name)
+
+        for name, text in (("vocab.txt", "\n".join(vocab) + "\n"),
+                           ("B1_training.sgml", sgml),
+                           ("SIGHAN15_CSC_TestInput.txt", test_input),
+                           ("SIGHAN15_CSC_TestTruth.txt", test_truth)):
+            with open(path(name), "w", encoding="utf-8") as f:
+                f.write(text)
+        step("prepare_data train", lambda: prepare_data.main([
+            "--format", "sighan-train", "--year", "14",
+            "--input", path("B1_training.sgml"), "--vocab_path", path("vocab.txt"),
+            "--repeat", "2", "--output_tsv", path("train.tsv"),
+            "--output_lbl", path("train.lbl.tsv"),
+            "--output_pkl", path("trainall.times2.pkl")]))
+        step("prepare_data test", lambda: prepare_data.main([
+            "--format", "sighan-test", "--year", "15",
+            "--input", path("SIGHAN15_CSC_TestInput.txt"),
+            "--truth", path("SIGHAN15_CSC_TestTruth.txt"),
+            "--vocab_path", path("vocab.txt"), "--output_tsv", path("test.tsv"),
+            "--output_lbl", path("test.sighan15.lbl.tsv"),
+            "--output_pkl", path("test.sighan15.pkl")]))
+        counts = {}
+        for name in ("train.tsv", "train.lbl.tsv", "test.tsv",
+                     "test.sighan15.lbl.tsv"):
+            with open(path(name), encoding="utf-8") as f:
+                counts[name] = len(f.read().splitlines())
+        for name in ("trainall.times2.pkl", "test.sighan15.pkl"):
+            with open(path(name), "rb") as f:
+                counts[name] = len(pickle.load(f))
+        want = {"train.tsv": n_train, "train.lbl.tsv": n_train,
+                "trainall.times2.pkl": 2 * n_train, "test.tsv": n_test,
+                "test.sighan15.lbl.tsv": n_test, "test.sighan15.pkl": n_test}
+        log(f"raw recipe: prepare_data wrote {counts}")
+        if counts != want:
+            fail(f"raw recipe: prepare_data wrote {counts}, expected {want}")
+
+        out = path("out")
+        data = ["--data_dir", d, "--vocab_path", path("vocab.txt")]
+        with recorded_steps() as rec:
+            step("cli/train", lambda: cli_train.main(data + [
+                "--do_train", "--do_eval", "--output_dir", out,
+                "--dtype", "bfloat16", "--train_file", "trainall.times2.pkl",
+                "--dev_file", "test.sighan15.pkl",
+                "--dev_label_file", "test.sighan15.lbl.tsv",
+                "--max_steps", str(steps), "--save_steps", str(steps),
+                "--per_device_train_batch_size", str(batch),
+                "--warmup_steps", "2", "--seed", str(SEED)]))
+        losses = check_steps("raw recipe: cli/train", rec, steps, layers)
+        step("cli/test", lambda: cli_test.main(data + [
+            "--ckpt_dir", out, "--testset_year", "15"]))
+        with open(os.path.join(out, "dev_results.json")) as f:
+            dev = json.load(f)
+        with open(os.path.join(out, "test_output", "test_results.json")) as f:
+            test = json.load(f)
+        ckpts = [s for s, _ in list_checkpoints(out)]
+    log(f"raw recipe: losses {losses}; checkpoints {ckpts}; dev {dev}; "
+        f"cli/test {test}")
+    if ckpts != [steps] or list(dev) != [str(steps)] or not all(
+            math.isfinite(v) for v in list(dev[str(steps)].values())
+            + list(test.values())):
+        fail(f"raw recipe: checkpoints {ckpts}, dev {dev}, test {test}")
+    eval_launches = 2 * layers * math.ceil(n_test / 32)  # dev eval + cli/test
+    serving = [launches["attention_block"], launches["ffn_block"]]
+    if serving != [eval_launches] * 2:
+        fail(f"raw recipe: serving kernels launched {serving} times, "
+             f"expected {eval_launches} each")
+    log("raw recipe: seconds " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in seconds.items())
+        + f"; launches {launches}; phase {time.perf_counter() - started:.1f} s "
+        f"[{card}]")
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -2848,6 +3209,13 @@ def main() -> int:
     for name, n in pretraining(device, card).items():
         launches[name] += n
     for name, n in bucket_launches.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as ckpt_root:
+        for name, n in fullwidth(device, card, ckpt_root).items():
+            launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in raw_recipe(device, card).items():
         launches[name] += n
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"

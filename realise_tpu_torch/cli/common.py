@@ -42,11 +42,11 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
                       pho_num_layers=1, out_num_layers=1,
                       max_position_embeddings=64)
 
-# Flags of the JAX CLIs whose parts are not ported yet → (how the parser
-# takes them, the ROADMAP queue A item that ports them): multi-GPU data
-# parallelism (6). Each CLI takes those of its JAX counterpart
-# (``add_unported``): every one with the common arguments and cli/test
-# ``--mesh``, cli/train ``--distributed`` too.
+# Flags of the one JAX part the port lacks, multi-GPU data parallelism
+# (ROADMAP queue A item 6) → (how the parser takes them, that item). Each
+# CLI takes those of its JAX counterpart (``add_unported``): every one with
+# the common arguments and cli/test ``--mesh``, cli/train ``--distributed``
+# too.
 UNPORTED: Dict[str, Tuple[dict, str]] = {
     "--mesh": ({}, "6 (multi-GPU data parallel)"),
     "--distributed": (dict(action="store_true"), "6 (multi-GPU data parallel)"),
@@ -192,6 +192,12 @@ def load_pkl_dataset(path: str) -> List[Dict]:
                 and ex["lengths"] == len(ex["tokens_size"])):
             raise ValueError(f"{path}: malformed example {ex.get('id')!r}")
     return data
+
+
+def save_pkl_dataset(data: List[Dict], path: str) -> None:
+    """Write examples in the format :func:`load_pkl_dataset` reads."""
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
 
 
 def load_dataset(args, tokenizer, filename: Optional[str],

@@ -29,16 +29,23 @@ The deduplicated tables in the state (``res_uniq_*``, ``pho_*``) are derived
 from the glyphs and the vocabulary; the port derives its own
 (``Realise.install_glyphs``, ``install_pho_vocab_tables``), so they are not
 converted.
+
+:func:`seeded_weights` makes a whole model's weights from a numpy seed alone,
+the same on every machine and torch version: the JAX package reads them with
+its own importer, and the full-width tests and ``chip_smoke.py`` hold both
+packages to each other on them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-from realise_tpu_torch.config import RealiseConfig
+from realise_tpu_torch.config import PHO2_VOCAB_SIZE, RealiseConfig
+from realise_tpu_torch.models.realise import build_model
 
 
 def _t(x) -> torch.Tensor:
@@ -162,3 +169,60 @@ def state_dict_from_jax(params: Mapping[str, Any], state: Mapping[str, Any],
     else:
         sd["classifier.bias"] = _t(head["bias"])
     return sd
+
+
+# The spread of seeded_weights' dense weights, biases and offsets: the tests'
+# recipe (the JAX init's 0.02 plus N(0, 0.05) noise) without the init.
+SEEDED_STD = 0.05
+
+
+def seeded_weights(cfg: RealiseConfig, seed: int
+                   ) -> Tuple[Dict[str, torch.Tensor], Tuple[np.ndarray, np.ndarray]]:
+    """Every tensor of ``build_model(cfg)``'s state dict, and (V, P) pinyin
+    ids + (V,) lengths for the vocab rows, drawn from
+    ``numpy.random.RandomState(seed)`` in the state dict's order (legacy
+    ``RandomState`` streams are fixed across numpy versions):
+
+    * dense, embedding and GRU weights, their biases, the tied head's bias:
+      N(0, 0.05); LayerNorm scales 1 + N(0, 0.05), offsets N(0, 0.05);
+    * convolutions: He normal, N(0, 2 / fan_in);
+    * BatchNorm scales 1 + N(0, 0.05) and offsets 1 + N(0, 0.05), running
+      means N(0, 0.1) and variances 1 + |N(0, 0.2)|: the +1 on the offsets
+      keeps every glyph row's CharResNet features nonzero (the tests'
+      ``live_glyph_features``), else the ReLUs could zero a row whole;
+    * the glyph tensor ``char_images_multifonts``: independent 0/1 pixels,
+      so no two rows share a glyph;
+    * the pinyin tables: ids in [1, 33), lengths in [0, pho2_max_len].
+
+    Returned as CPU float32 tensors that share the numpy arrays' memory."""
+    rng = np.random.RandomState(seed)
+    with torch.device("meta"):
+        model = build_model(cfg)
+    modules = dict(model.named_modules())
+    sd: Dict[str, torch.Tensor] = {}
+    for key, meta in model.state_dict().items():
+        mod_name, _, leaf = key.rpartition(".")
+        mod, shape = modules[mod_name], tuple(meta.shape)
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.tensor(0, dtype=torch.long)
+            continue
+        if key == "char_images_multifonts":
+            x = rng.randint(0, 2, shape, dtype=np.uint8)
+        elif isinstance(mod, nn.Conv2d):
+            x = rng.normal(0.0, (2.0 / np.prod(shape[1:])) ** 0.5, shape)
+        elif isinstance(mod, nn.BatchNorm2d):
+            if leaf == "running_mean":
+                x = rng.normal(0.0, 0.1, shape)
+            elif leaf == "running_var":
+                x = 1.0 + np.abs(rng.normal(0.0, 0.2, shape))
+            else:  # the scale and the offset
+                x = 1.0 + rng.normal(0.0, SEEDED_STD, shape)
+        elif isinstance(mod, nn.LayerNorm) and leaf == "weight":
+            x = 1.0 + rng.normal(0.0, SEEDED_STD, shape)
+        else:
+            x = rng.normal(0.0, SEEDED_STD, shape)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    v, p = cfg.vocab_size, cfg.pho2_max_len
+    pho_idx = rng.randint(1, PHO2_VOCAB_SIZE, (v, p)).astype(np.int32)
+    pho_lens = rng.randint(0, p + 1, (v,)).astype(np.int32)
+    return sd, (pho_idx, pho_lens)

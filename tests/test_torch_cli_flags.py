@@ -15,9 +15,9 @@ from realise_tpu_torch.text.vocab import REAL_VOCAB_CJK_CHARS, build_synthetic_v
 from torch_port_fixtures import one_intra_op_thread
 
 # The CLIs with a build_parser() in both packages (cli/exprun has none in
-# either, cli/prepare_data no port yet: ROADMAP queue A item 11).
+# either).
 CLIS = ("correct", "serve", "test", "train", "show_gate", "merge",
-        "pretrain_pho", "pretrain_res")
+        "pretrain_pho", "pretrain_res", "prepare_data")
 # The documented renames: the JAX platform and Pallas switches are the
 # port's device and kernel switches.
 JAX_ONLY = {"--platform", "--use_pallas", "--no_pallas"}

@@ -173,7 +173,30 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    files whose line or example counts differ from the corpus's, on a
    non-finite loss or score, or when a step does not launch each train
    kernel once per encoder layer or an eval batch each serving kernel; the
-   seconds of each step are printed. Both phases' launches join the record.
+   seconds of each step are printed. Both phases' launches join the record;
+15. data parallelism (``realise_tpu_torch/parallel/``): (a) ``cli/train
+   --distributed --mesh data=1 --do_train --do_eval`` under torchrun's
+   variables for a world of one on NCCL (arch3, bf16, the published
+   dropout, 4 steps at B=64, checkpoints at steps 2 and 4) against the same
+   run without a process group: every checkpoint file (config, weights,
+   optimizer state, step, generator) the same bits, the same losses, 19
+   launches of each train kernel a step; (b) two ranks on the one card (a
+   gloo group through the library API: NCCL refuses two ranks on one
+   card), float32 at dropout 0, 32 rows each at S=128, against one process
+   on the 64 rows that runs each rank's half with its own BatchNorm batch
+   statistics: the loss within 1e-5 relative, every gradient within 1.5e-3
+   of its largest entry, the running statistics within 1e-5; (c) the same
+   in bf16 at the published dropout, three steps: after every step both
+   ranks' weights the same bits, the two ranks' masks different (each rank
+   draws its own stream), a second call the same bits, and ``eval_step``'s
+   gathered predictions equal to one process's on the 64 rows; (d) with two
+   or more cards, ``torchrun --nproc_per_node N`` of ``cli/train
+   --distributed --mesh data=N --length_buckets 32,64,128`` at 64 rows a
+   card on NCCL for N = 1, 2 and 4 (up to the count): every rank's loss
+   trace equal, rank 0 alone writing the checkpoint, the step time, the
+   all-reduce's time and sentences/s; on one card (d) logs that it was
+   skipped. The launches of (a)'s distributed run and of (c)'s steps and
+   gathered eval on both ranks join the record.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -3146,6 +3169,593 @@ def raw_recipe(device, card):
     return launches
 
 
+# ------------------------------------------------------- data parallelism
+DP_TIMEOUT_S = 600
+DP_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+# Phase 15b: two ranks against one process on the global batch (float32,
+# dropout 0): the loss sum and gradients within the kernel-vs-plain limits
+# (PATH_LOSS_REL, PATH_GRAD_REL), the BatchNorm running statistics within
+# FACTOR_BN_TOL.
+DP_ROWS, DP_RANKS = 32, 2
+# Phase 15d profiles steps 4-9 of each rank (torch.profiler, the card's
+# kernels) to set the ranks' kernel time beside their step time.
+DP_PROFILE = dict(wait=3, warmup=1, active=6)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def torchrun_env(world, rank):
+    """torchrun's variables for one rank of ``world`` on this host."""
+    saved = {k: os.environ.get(k) for k in DP_ENV}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_processes(cmds, label, timeout=DP_TIMEOUT_S, env=None):
+    """Run the commands together; fail when one exits non-zero or the time
+    runs out (every process is killed then). Returns their outputs."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, env=env)
+             for cmd in cmds]
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            try:
+                out, _ = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                fail(f"{label}: timed out after {timeout} s")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{label}: process {i} exited {p.returncode}:\n{out[-6000:]}")
+    return outs
+
+
+def dp_corpus(root, n_train, n_dev):
+    """vocab.txt, train.pkl (20-100 chars: every bucket) and dev.pkl in
+    ``root``; returns the cli/train data flags."""
+    from realise_tpu_torch.data.dataset import synthetic_dataset
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+
+    vocab = build_synthetic_vocab(size=21128, cjk_chars=REAL_VOCAB_CJK_CHARS)
+    tok = WordPieceTokenizer(vocab_to_dict(vocab))
+    with open(os.path.join(root, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(vocab) + "\n")
+    for name, n, seed in (("train.pkl", n_train, SEED + 1500),
+                          ("dev.pkl", n_dev, SEED + 1501)):
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump(synthetic_dataset(tok, num_examples=n, min_len=20,
+                                          max_len=100, seed=seed), f)
+    return ["--data_dir", root, "--train_file", "train.pkl", "--dev_file",
+            "dev.pkl", "--dtype", "bfloat16", "--seed", str(SEED),
+            "--logging_steps", "0", "--warmup_steps", "2"]
+
+
+def checkpoint_bits(a, b):
+    """The names of the checkpoint files (config, weights, trainer state)
+    of dirs ``a`` and ``b`` whose contents differ."""
+    import torch
+
+    from realise_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                       load_trainer_state)
+
+    def flat(obj, prefix=""):
+        if isinstance(obj, dict):
+            for k, v in obj.items():
+                yield from flat(v, f"{prefix}{k}/")
+        elif isinstance(obj, (list, tuple)):
+            for i, v in enumerate(obj):
+                yield from flat(v, f"{prefix}{i}/")
+        else:
+            yield prefix, obj
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x, y))
+        return x == y
+
+    bad = []
+    with open(os.path.join(a, "config.json")) as f, \
+            open(os.path.join(b, "config.json")) as g:
+        if f.read() != g.read():
+            bad.append("config.json")
+    for name, load in (("model.pt", load_checkpoint),
+                       ("trainer.pt", load_trainer_state)):
+        x, y = dict(flat(load(a))), dict(flat(load(b)))
+        if x.keys() != y.keys() or not all(equal(x[k], y[k]) for k in x):
+            bad.append(name)
+    return bad
+
+
+def param_checksums(model):
+    """One int64 checksum of each parameter's bits (a position-weighted sum
+    of its int32 words, wrapping): equal bits, equal sums."""
+    import torch
+
+    out = []
+    for p in model.parameters():
+        words = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        out.append((words * weights).sum())
+    return torch.stack(out)
+
+
+def dp_reference(model, batch, device, parts):
+    """One process on the global batch, as ``parts`` data-parallel ranks
+    compute it: each part's loss sum and gradient with its own BatchNorm
+    batch statistics (the running statistics restarted for each part and
+    averaged after), summed and divided by the global count. Returns the
+    mean loss, the gradients and the running statistics."""
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+
+    model.to(device).train()
+    start = bn_state(model)
+    rows = len(batch["src_idx"]) // parts
+    loss_sum = count = 0.0
+    after = []
+    for i in range(parts):
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                if n in start:
+                    b.copy_(start[n])
+        part = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+        part.update(model.conv_rows(part["src_idx"]))
+        out = model(to_device(part, device), use_kernels=True)
+        out["loss_sum"].backward()
+        loss_sum += out["loss_sum"].item()
+        count += out["loss_count"].item()
+        after.append(bn_state(model))
+    grads = {n: p.grad / count for n, p in model.named_parameters()}
+    stats = {n: sum(a[n] for a in after) / parts for n in start}
+    return loss_sum / count, grads, stats
+
+
+def dp_rank(rank, work, device_type="cuda"):
+    """One of phase 15b-15c's two ranks on the one card (gloo, the library
+    API; ``device_type`` "cpu" rehearses it on the CPU). Writes
+    ``work/rank{rank}.json``."""
+    import copy
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.data.features import Featurizer, to_device
+    from realise_tpu_torch.device import resolve_device
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.ops.layers import dropout_generator
+    from realise_tpu_torch.parallel.distributed import (gather_rows,
+                                                        initialize, shutdown)
+    from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
+                                              build_synthetic_vocab,
+                                              vocab_to_dict)
+    from realise_tpu_torch.training.trainer import Trainer
+
+    os.environ["LOCAL_RANK"] = "0"  # both ranks on card 0
+    initialize(f"file://{work}/store", DP_RANKS, rank, backend="gloo",
+               device=device_type)
+    out = {}
+    try:
+        device = resolve_device(None if device_type == "cuda" else device_type)
+        solo = [dist.new_group([r]) for r in range(DP_RANKS)][rank]
+
+        def mine(batch):
+            return {k: v[rank * DP_ROWS:(rank + 1) * DP_ROWS]
+                    for k, v in batch.items()}
+
+        # 15b: float32, dropout 0, against one process on the global batch.
+        cfg = config_for(ARCH3, vocab_size=21128, dtype="float32",
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+        model = seeded_model(cfg, SEED + 20)
+        reference = copy.deepcopy(model) if rank == 0 else None
+        batch = train_batches(cfg, 1, DP_ROWS * DP_RANKS, SEED + 21)[0]
+        tr = Trainer(cfg, model, device=device, max_grad_norm=None,
+                     learning_rate=1e-5)
+        loss = float(tr.train_step(mine(batch)))
+        if rank == 0:
+            want_loss, want_grads, want_stats = dp_reference(
+                reference, batch, device, DP_RANKS)
+            floor = 1e-4 * max(g.abs().max().item()
+                               for g in want_grads.values())
+            grad_err = max(
+                (p.grad - want_grads[n]).abs().max().item()
+                / max(want_grads[n].abs().max().item(), floor)
+                for n, p in tr.model.named_parameters())
+            got_stats = bn_state(tr.model)
+            out["15b"] = dict(
+                loss=loss, want_loss=want_loss,
+                loss_rel=abs(loss - want_loss) / abs(want_loss),
+                grad_rel=grad_err,
+                bn=max((got_stats[n] - s).abs().max().item()
+                       for n, s in want_stats.items()))
+            del want_grads, want_stats
+        del tr, model, reference
+        torch.cuda.empty_cache()
+
+        # 15c: bfloat16 at the published dropout, three steps, twice.
+        cfg = config_for(ARCH3, vocab_size=21128, dtype="bfloat16")
+        model = seeded_model(cfg, SEED + 22)
+        sd = {k: v.clone() for k, v in model.state_dict().items()}
+        batches = train_batches(cfg, 4, DP_ROWS * DP_RANKS, SEED + 23)
+        wrappers = (bb.attention_block, bb.ffn_block) + tuple(tbt.KERNEL_WRAPPERS)
+        calls = []
+        for call in range(2):
+            model.load_state_dict(sd)
+            tr = Trainer(cfg, model, device=device, seed=SEED)
+            if call == 0:
+                for fn in wrappers:
+                    fn.launches = 0
+            sums, losses = [], []
+            for b in batches[:3]:
+                losses.append(float(tr.train_step(mine(b))))
+                sums.append(param_checksums(tr.model))
+            if call == 0:
+                launches = {fn.__name__: fn.launches for fn in wrappers}
+            calls.append((losses, torch.stack(sums)))
+        # Replicas: every step's checksums, gathered in rank order.
+        both = gather_rows(calls[0][1][None]).cpu()
+        out["15c"] = dict(
+            losses=calls[0][0],
+            replicas_equal=bool(torch.equal(both[0], both[1])),
+            rerun_equal=(calls[0][0] == calls[1][0]
+                         and bool(torch.equal(calls[0][1], calls[1][1]))))
+        # The masks: both ranks' loss on the same rows, each drawn from its
+        # rank's generator of one seed.
+        tr.model.train()
+        rows = {k: v[:DP_ROWS] for k, v in batches[0].items()}
+        rows.update(tr.model.conv_rows(rows["src_idx"]))
+        with torch.no_grad():
+            masked = tr.model(to_device(rows, device), use_kernels=True,
+                              generator=dropout_generator(SEED, rank))
+        out["15c"]["mask_losses"] = gather_rows(
+            masked["loss_sum"].float().reshape(1)).tolist()
+        # The gathered eval against one process (a group of one) on the
+        # global rows, through the (V, H) tables.
+        vocab = build_synthetic_vocab(size=21128, cjk_chars=REAL_VOCAB_CJK_CHARS)
+        feat = Featurizer(WordPieceTokenizer(vocab_to_dict(vocab)), cfg)
+        eval_batch = batches[3]
+        tr.prepare_eval_tables(feat)
+        before = {fn.__name__: fn.launches for fn in wrappers}
+        got = tr.eval_step(mine(eval_batch))
+        for fn in wrappers:
+            launches[fn.__name__] += fn.launches - before[fn.__name__]
+        alone = Trainer(cfg, tr.model, device=device, process_group=solo)
+        alone.prepare_eval_tables(feat)
+        want = alone.eval_step(eval_batch)
+        out["15c"].update(
+            eval_equal=bool(np.array_equal(got["pred_idx"], want["pred_idx"])),
+            eval_rows=int(got["pred_idx"].shape[0]),
+            eval_loss=got["loss"], eval_loss_alone=want["loss"])
+        out["launches"] = launches
+    finally:
+        shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_cli_rank(work, argv):
+    """One torchrun rank of phase 15's multi-card run: ``cli/train`` with
+    each step timed to its end (a sync after it), its loss, the rows with a
+    loss, the train kernels' launches and the CUDA-event time of its
+    all-reduces (the flat copies and NCCL, from the end of the backward)
+    recorded, the kernel time of steps 4-9 (``DP_PROFILE``; NCCL's
+    kernels apart, since they include the wait for the other ranks), and
+    the checkpoints the rank wrote. Writes ``work/rank{RANK}.json``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from realise_tpu_torch.cli import train as cli_train
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.parallel.distributed import shutdown
+    from realise_tpu_torch.training import checkpoint
+    from realise_tpu_torch.training.trainer import Trainer
+
+    rec = {"steps": [], "writes": []}
+    step, write = Trainer.train_step, checkpoint._write_checkpoint
+    reduce = Trainer.all_reduce_sum
+    events = []
+
+    def all_reduce_sum(self, tensors):
+        if self.device.type != "cuda":
+            return reduce(self, tensors)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        reduce(self, tensors)
+        end.record()
+        events.append((start, end))
+
+    prof = None
+
+    def train_step(self, batch):
+        before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        events.clear()
+        t = time.perf_counter()
+        loss = float(step(self, batch))  # reads back: synchronised
+        rec["steps"].append(dict(
+            seconds=time.perf_counter() - t, loss=loss,
+            all_reduce_ms=sum(a.elapsed_time(b) for a, b in events),
+            length=int(np.shape(batch["src_idx"])[1]),
+            rows=int((np.asarray(batch["loss_masks"]).sum(1) > 0).sum()),
+            launches=[fn.launches - n for fn, n in
+                      zip(tbt.KERNEL_WRAPPERS, before)]))
+        if prof is not None:
+            prof.step()
+        return loss
+
+    def recording_write(ckpt_dir, *a):
+        rec["writes"].append(os.path.basename(ckpt_dir))
+        return write(ckpt_dir, *a)
+
+    Trainer.train_step, checkpoint._write_checkpoint = train_step, recording_write
+    Trainer.all_reduce_sum = all_reduce_sum
+    try:
+        if torch.cuda.is_available():
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(repeat=1, **DP_PROFILE)) as prof:
+                rc = cli_train.main(argv)
+            kernels = nccl = 0.0
+            for evt in prof.key_averages():
+                us = (getattr(evt, "device_time_total", 0)
+                      or getattr(evt, "cuda_time_total", 0))
+                if "nccl" in evt.key.lower():
+                    nccl += us / 1e3
+                else:
+                    kernels += us / 1e3
+            rec["profiled"] = dict(kernel_ms=kernels, nccl_ms=nccl)
+        else:
+            rc = cli_train.main(argv)
+    finally:
+        shutdown()
+    rec["rc"] = rc
+    rec["threads"] = torch.get_num_threads()
+    with open(os.path.join(work, f"rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(rec, f)
+    return rc
+
+
+def dp_scaling(card, root, data_flags, layers, cards):
+    """Phase 15d: ``torchrun --nproc_per_node N`` of ``cli/train
+    --distributed --mesh data=N --length_buckets 32,64,128`` at 64 rows a
+    card on NCCL, for each N in ``cards``: every rank's loss trace equal,
+    19 launches of each train kernel a step, the checkpoint written by rank
+    0 alone; the step time and sentences/s after two warm-up steps."""
+    import statistics as st
+
+    from realise_tpu_torch.training.checkpoint import list_checkpoints
+
+    steps = 12
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    rates = {}
+    for n in cards:
+        work = os.path.join(root, f"cards{n}")
+        os.makedirs(work)
+        argv = data_flags + [
+            "--distributed", "--mesh", f"data={n}", "--length_buckets",
+            ",".join(map(str, BUCKETS)), "--per_device_train_batch_size", "64",
+            "--max_steps", str(steps), "--save_steps", "100000",
+            "--do_train", "--output_dir",
+            os.path.join(work, "out")]
+        t = time.perf_counter()
+        run_processes([[sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", f"--nproc_per_node={n}",
+                        os.path.abspath(__file__), "dp-cli-rank", work] + argv],
+                      f"data parallel: torchrun {n} cards", env=env)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        traces = [[s["loss"] for s in rk["steps"]] for rk in ranks]
+        if any(tr != traces[0] for tr in traces) or len(traces[0]) != steps:
+            fail(f"data parallel: {n} cards: loss traces {traces}")
+        bad = [s["launches"] for rk in ranks for s in rk["steps"]
+               if s["launches"] != [layers] * 4]
+        if bad:
+            fail(f"data parallel: {n} cards: train kernels launched {bad[:4]}")
+        writes = [rk["writes"] for rk in ranks]
+        ckpts = [s for s, _ in list_checkpoints(os.path.join(work, "out"))]
+        if writes[0] != [f"saved_ckpt-{steps}"] or any(writes[1:]) \
+                or ckpts != [steps]:
+            fail(f"data parallel: {n} cards: checkpoint writes {writes}, "
+                 f"checkpoints {ckpts}")
+        timed = ranks[0]["steps"][2:]
+        secs = [max(rk["steps"][i]["seconds"] for rk in ranks)
+                for i in range(2, steps)]
+        sent = [sum(rk["steps"][i]["rows"] for rk in ranks)
+                for i in range(2, steps)]
+        rates[n] = (st.median(secs), sum(sent) / sum(secs))
+        # A rank's all-reduce time holds its wait for the last rank to
+        # arrive: the least over the ranks is the collective itself.
+        reduce_ms = [[rk["steps"][i]["all_reduce_ms"] for rk in ranks]
+                     for i in range(2, steps)]
+        rank_ms = [1e3 * st.median(s["seconds"] for s in rk["steps"][2:])
+                   for rk in ranks]
+        first = DP_PROFILE["wait"] + DP_PROFILE["warmup"]
+        window = range(first, first + DP_PROFILE["active"])
+        profiled = [
+            (rk["profiled"]["kernel_ms"], rk["profiled"]["nccl_ms"],
+             1e3 * sum(rk["steps"][i]["seconds"] for i in window))
+            for rk in ranks if "profiled" in rk]
+        log(f"data parallel: {n} card(s), steps {window.start}-"
+            f"{window.stop - 1} profiled, each rank's kernels / NCCL "
+            f"kernels / step ms: " + "; ".join(
+                f"{k:.3f} / {c:.3f} / {w:.3f}" for k, c, w in profiled)
+            + f" [{card}]")
+        log(f"data parallel: {n} card(s), torchrun {wall:.1f} s: losses "
+            f"{traces[0]}; step lengths {[s['length'] for s in ranks[0]['steps']]}; "
+            f"median step {1e3 * rates[n][0]:.3f} ms (each rank's median "
+            f"{[round(x, 3) for x in rank_ms]}), all-reduce median "
+            f"{st.median(min(r) for r in reduce_ms):.3f} ms least over the "
+            f"ranks, {st.median(max(r) for r in reduce_ms):.3f} ms most; "
+            f"{rates[n][1]:.1f} sentences/s over {len(timed)} steps; "
+            f"{ranks[0]['threads']} torch threads a rank, {os.cpu_count()} "
+            f"host cores [{card}]")
+    base = rates[cards[0]][1]
+    log("data parallel: sentences/s by cards " + ", ".join(
+        f"{n}: {r:.1f} ({r / base:.2f}x)" for n, (_, r) in rates.items())
+        + f" [{card}]")
+
+
+def data_parallel(device, card):
+    """Phase 15: data parallelism on the card. Returns the kernels' launches
+    on its path (15a's distributed cli/train, 15c's steps and eval on both
+    ranks)."""
+    import math
+
+    import torch
+
+    from realise_tpu_torch.cli import train as cli_train
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.parallel.distributed import shutdown
+
+    started = time.perf_counter()
+    wrappers = (bb.attention_block, bb.ffn_block) + tuple(tbt.KERNEL_WRAPPERS)
+    layers = encoder_layers(config_for(ARCH3))
+    with tempfile.TemporaryDirectory() as root:
+        data_flags = dp_corpus(root, 4096, 64)
+        if device.type == "cpu":  # a rehearsal of the phase on the CPU
+            data_flags += ["--device", "cpu"]
+        # 15a: cli/train --distributed --mesh data=1 on NCCL against the same
+        # run without a process group: every checkpoint file's bits.
+        argv = data_flags + ["--per_device_train_batch_size", "64",
+                             "--max_steps", "4", "--save_steps", "2",
+                             "--do_train", "--do_eval"]
+        outs, seconds = {}, {}
+        launches = None
+        for label, extra in (("distributed", ["--distributed", "--mesh",
+                                              "data=1"]), ("plain", [])):
+            out = os.path.join(root, label)
+            for fn in wrappers:
+                fn.launches = 0
+            t = time.perf_counter()
+            with recorded_steps() as rec:
+                if extra:
+                    with torchrun_env(1, 0):
+                        try:
+                            rc = cli_train.main(argv + extra +
+                                                ["--output_dir", out])
+                        finally:
+                            shutdown()
+                else:
+                    rc = cli_train.main(argv + ["--output_dir", out])
+            seconds[label] = time.perf_counter() - t
+            if rc != 0:
+                fail(f"data parallel: cli/train ({label}) exited {rc}")
+            outs[label] = check_steps(f"data parallel: cli/train ({label})",
+                                      rec, 4, layers)
+            if launches is None:
+                launches = {fn.__name__: fn.launches for fn in wrappers}
+        bad = {s: checkpoint_bits(os.path.join(root, "distributed",
+                                               f"saved_ckpt-{s}"),
+                                  os.path.join(root, "plain",
+                                               f"saved_ckpt-{s}"))
+               for s in (2, 4)}
+        log(f"data parallel 15a: cli/train --distributed --mesh data=1 (NCCL) "
+            f"{seconds['distributed']:.2f} s, without {seconds['plain']:.2f} s; "
+            f"losses {outs['distributed']} / {outs['plain']}; checkpoint "
+            f"files that differ {bad}; launches {launches} [{card}]")
+        if any(bad.values()) or outs["distributed"] != outs["plain"]:
+            fail(f"data parallel: a world of one on NCCL changed the bits: {bad}")
+        serving_want = 2 * layers * math.ceil(64 / 32)  # two checkpoints
+        if [launches["attention_block"], launches["ffn_block"]] \
+                != [serving_want] * 2:
+            fail(f"data parallel: serving kernels {launches}, expected "
+                 f"{serving_want} each")
+
+        # 15b-15c: two ranks on the one card (gloo), the library API.
+        torch.cuda.empty_cache()
+        work = os.path.join(root, "ranks")
+        os.makedirs(work)
+        t = time.perf_counter()
+        run_processes([[sys.executable, os.path.abspath(__file__), "dp-rank",
+                        str(r), work, device.type] for r in range(DP_RANKS)],
+                      "data parallel: two ranks on one card")
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        b, c = ranks[0]["15b"], ranks[0]["15c"]
+        log(f"data parallel 15b: two ranks of {DP_ROWS} rows (gloo, one card) "
+            f"against one process on {DP_ROWS * DP_RANKS}, f32 dropout 0, S=128: "
+            f"loss {b['loss']:.6f} / {b['want_loss']:.6f} (relative "
+            f"{b['loss_rel']:.2e}, tol {PATH_LOSS_REL}); worst gradient "
+            f"relative {b['grad_rel']:.2e} (tol {PATH_GRAD_REL}); BN running "
+            f"statistics {b['bn']:.2e} (tol {FACTOR_BN_TOL})")
+        log(f"data parallel 15c: bf16 dropout {TRAIN_RATE}, 3 steps: losses "
+            f"{c['losses']}; replicas equal {c['replicas_equal']} (rank 1 "
+            f"{ranks[1]['15c']['replicas_equal']}); rerun equal "
+            f"{c['rerun_equal']}; mask losses {c['mask_losses']}; gathered "
+            f"eval of {c['eval_rows']} rows equal {c['eval_equal']}, loss "
+            f"{c['eval_loss']:.6f} / {c['eval_loss_alone']:.6f}; ranks "
+            f"{time.perf_counter() - t:.1f} s [{card}]")
+        if (b["loss_rel"] > PATH_LOSS_REL or b["grad_rel"] > PATH_GRAD_REL
+                or b["bn"] > FACTOR_BN_TOL):
+            fail("data parallel: two ranks disagree with one process")
+        if not (c["replicas_equal"] and ranks[1]["15c"]["replicas_equal"]
+                and all(rk["15c"]["rerun_equal"] for rk in ranks)
+                and c["mask_losses"][0] != c["mask_losses"][1]
+                and all(rk["15c"]["eval_equal"] for rk in ranks)
+                and c["eval_rows"] == DP_ROWS * DP_RANKS):
+            fail("data parallel: the ranks' replicas, masks or eval broke "
+                 "their contract")
+        for rk in ranks:
+            for name, n in rk["launches"].items():
+                launches[name] += n
+            if rk["launches"]["attention_train_forward"] != 3 * layers:
+                fail(f"data parallel: a rank's steps launched {rk['launches']}")
+
+        # 15d: the CLI on NCCL over several cards, when the host has them.
+        count = torch.cuda.device_count()
+        if count >= 2:
+            dp_scaling(card, root, data_flags, layers,
+                       [n for n in (1, 2, 4) if n <= count])
+        else:
+            log("data parallel 15d: skipped, one card (the multi-card "
+                "torchrun runs need two or more)")
+    log(f"data parallel: launches {launches}; phase "
+        f"{time.perf_counter() - started:.1f} s [{card}]")
+    return launches
+
+
 # -------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -3217,6 +3827,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     for name, n in raw_recipe(device, card).items():
         launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in data_parallel(device, card).items():
+        launches[name] += n
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"
     sources = {"attention_block": "realise_tpu/ops/pallas/bert_block.py:67",
@@ -3245,4 +3858,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # Phase 15's own processes: a rank of 15b-15c, a torchrun rank of 15d.
+    if sys.argv[1:2] == ["dp-rank"]:
+        dp_rank(int(sys.argv[2]), sys.argv[3], *sys.argv[4:5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["dp-cli-rank"]:
+        sys.exit(dp_cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

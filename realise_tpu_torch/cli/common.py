@@ -1,11 +1,11 @@
 """Shared CLI plumbing of the port: arguments, tokenizer, config, glyphs,
-data and evaluation (the port's own copy of ``realise_tpu.cli.common``
-without its multi-host branches).
+mesh, data and evaluation (the port's own copy of ``realise_tpu.cli.common``).
 
 Flag names and meanings follow the JAX package's CLIs (which follow the
-reference's src/run.py:282-391). Flags of parts the port does not have yet
-are still accepted, and exit with the ROADMAP item that will bring them
-rather than being ignored.
+reference's src/run.py:282-391). ``--mesh`` takes the JAX syntax
+(``data=N``); where the JAX package spreads a mesh over the devices of one
+process, the port runs one process per card under torchrun, so
+``--mesh data=N`` needs a process group of N ranks (:func:`build_mesh`).
 """
 
 from __future__ import annotations
@@ -41,17 +41,6 @@ TINY_OVERRIDES = dict(hidden_size=32, num_hidden_layers=2,
                       num_attention_heads=2, intermediate_size=64,
                       pho_num_layers=1, out_num_layers=1,
                       max_position_embeddings=64)
-
-# Flags of the one JAX part the port lacks, multi-GPU data parallelism
-# (ROADMAP queue A item 6) → (how the parser takes them, that item). Each
-# CLI takes those of its JAX counterpart (``add_unported``): every one with
-# the common arguments and cli/test ``--mesh``, cli/train ``--distributed``
-# too.
-UNPORTED: Dict[str, Tuple[dict, str]] = {
-    "--mesh": ({}, "6 (multi-GPU data parallel)"),
-    "--distributed": (dict(action="store_true"), "6 (multi-GPU data parallel)"),
-}
-
 
 def setup_logging(verbose: bool = True) -> None:
     logging.basicConfig(
@@ -90,27 +79,53 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="synthetic vocab + dataset (no corpus assets needed)")
     p.add_argument("--tiny", action="store_true",
                    help="tiny model dims for smoke tests")
-    add_unported(p, "--mesh")
+    add_mesh_arg(p)
     return p
 
 
-def add_unported(p: argparse.ArgumentParser, *flags: str) -> None:
-    """Take ``flags`` (keys of ``UNPORTED``), so that ``reject_unported``
-    names their ROADMAP item instead of argparse calling them unknown."""
-    for flag in flags:
-        kw, item = UNPORTED[flag]
-        p.add_argument(flag, default=None, **kw,
-                       help=f"not ported yet (ROADMAP queue A item {item})")
+def add_mesh_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mesh", default=None,
+                   help="e.g. 'data=4': data parallelism over 4 ranks, one "
+                        "card each (launch with torchrun --nproc_per_node "
+                        "4); default one process")
 
 
-def reject_unported(args: argparse.Namespace) -> None:
-    """Exit naming the ROADMAP item of every unported flag that was given."""
-    given = [(flag, item) for flag, (_, item) in UNPORTED.items()
-             if getattr(args, flag[2:], None) not in (None, False)]
-    if given:
-        raise SystemExit("; ".join(
-            f"{flag} is not ported to realise_tpu_torch yet (ROADMAP queue A "
-            f"item {item})" for flag, item in given))
+def build_mesh(args):
+    """The run's mesh, or None without ``--mesh`` and ``--distributed``.
+
+    ``--mesh`` is parsed as the JAX package parses it
+    (``realise_tpu/cli/common.py:200-214``). Under torchrun's environment,
+    or with ``--distributed``, the process group forms first (NCCL, gloo
+    with ``--device cpu``; ``parallel.distributed.initialize``), before
+    anything touches the card. ``--distributed`` without ``--mesh`` means
+    ``data=WORLD_SIZE``. A mesh the group cannot hold (another world size, a
+    ``model`` axis above 1) exits with the reason."""
+    from realise_tpu_torch.parallel.distributed import (
+        initialize,
+        launched_by_torchrun,
+    )
+    from realise_tpu_torch.parallel.mesh import make_mesh
+
+    distributed = getattr(args, "distributed", False)
+    if not args.mesh and not distributed:
+        return None
+    axes = {}
+    for part in args.mesh.split(",") if args.mesh else ():
+        name, eq, n = part.partition("=")
+        name = name.strip()
+        if not eq or not name or not n.strip().isdigit():
+            raise SystemExit(
+                f"--mesh: bad axis {part!r}: expected name=count pairs like "
+                f"'data=8' or 'data=4,model=1'")
+        axes[name] = int(n)
+    if distributed or launched_by_torchrun():
+        initialize(device=args.device)
+    try:
+        mesh = make_mesh(axes or None)
+    except ValueError as e:
+        raise SystemExit(f"--mesh: {e}")
+    logger.info("mesh %s", mesh)
+    return mesh
 
 
 def resolve_resfonts(args) -> Tuple[int, bool]:
@@ -211,14 +226,16 @@ def load_dataset(args, tokenizer, filename: Optional[str],
     return load_pkl_dataset(path)
 
 
-def zero_padding_loss(feed: Dict, n_real: int) -> Dict:
-    """Zero ``loss_masks`` on padded duplicate rows (rows ≥ ``n_real``):
-    counting them would over-weight one example's gradient."""
-    if n_real >= feed["loss_masks"].shape[0]:
+def zero_padding_loss(feed: Dict, n_real: int, row0: int = 0) -> Dict:
+    """Zero ``loss_masks`` on padded duplicate rows (global rows ≥
+    ``n_real``; ``row0`` is this rank's first global row): counting them
+    would over-weight one example's gradient."""
+    rows = feed["loss_masks"].shape[0]
+    if n_real >= row0 + rows:
         return feed
     feed = dict(feed)
     lm = np.array(feed["loss_masks"], copy=True)
-    lm[n_real:] = 0
+    lm[max(0, min(n_real - row0, rows)):] = 0
     feed["loss_masks"] = lm
     return feed
 
@@ -239,16 +256,31 @@ def evaluate_model(trainer, dataset: List[Dict], featurizer, tokenizer,
     filtered copy; the reference scores a provided file unfiltered
     (ADVICE.md:4), so how many edits the filter dropped from it is logged.
     ``use_fast_path`` builds the (V, H) stream tables of the trainer's
-    current weights first (``Trainer.prepare_eval_tables``)."""
+    current weights first (``Trainer.prepare_eval_tables``).
+
+    In a process group (the JAX function's multi-process branch,
+    realise_tpu/cli/common.py:248-311) each rank featurizes its
+    ``local_slice`` of every batch for the device and the whole batch for
+    the metric; ``Trainer.eval_step`` gathers every rank's predictions, so
+    every rank computes the same metrics. Rank ``p`` > 0 writes its files
+    with a ``.p{p}`` suffix, so no two ranks write one file."""
+    from realise_tpu_torch.parallel.distributed import (
+        is_main_process,
+        local_slice,
+        process_count,
+        process_index,
+    )
+
+    suffix = "" if is_main_process() else f".p{process_index()}"
     work = os.path.join(out_dir, prefix)
     os.makedirs(work, exist_ok=True)
     provided = label_path is not None
     if not provided:
-        label_path = os.path.join(work, "gold.lbl.tsv")
+        label_path = os.path.join(work, f"gold.lbl.tsv{suffix}")
         with open(label_path, "w", encoding="utf-8") as f:
             f.write("\n".join(dataset_labels(dataset)))
     if should_remove_de:
-        filtered = os.path.join(work, "gold.remove_de.lbl.tsv")
+        filtered = os.path.join(work, f"gold.remove_de.lbl.tsv{suffix}")
         removed = remove_de(input_path=label_path, output_path=filtered)
         if provided:
             logger.info("remove_de dropped %d 地/得 edits from the label file "
@@ -263,9 +295,14 @@ def evaluate_model(trainer, dataset: List[Dict], featurizer, tokenizer,
     # sliced back to the real examples.
     for examples in batch_iterator(dataset, batch_size, pad_final=False):
         n = len(examples)
-        host = featurizer.featurize(pad_examples(examples, batch_size))
+        padded = pad_examples(examples, batch_size)
+        host = featurizer.featurize(padded)
+        feed, row0 = host, 0
+        if process_count() > 1:
+            feed = featurizer.featurize(local_slice(padded))
+            row0 = process_index() * feed["loss_masks"].shape[0]
         out = trainer.eval_step(featurizer.device_batch(
-            zero_padding_loss(host, n)))
+            zero_padding_loss(feed, n, row0)))
         host["pred_idx"] = out["pred_idx"][:n]
         for k in ("src_idx", "masks", "loss_masks", "id", "src", "tgt",
                   "tokens_size", "lengths"):
@@ -278,8 +315,9 @@ def evaluate_model(trainer, dataset: List[Dict], featurizer, tokenizer,
         batches.append(host)
 
     results = Metric(tokenizer).metric(
-        batches, pred_txt_path=os.path.join(work, "preds.txt"),
-        pred_lbl_path=os.path.join(work, "labels.txt"), label_path=label_path,
+        batches, pred_txt_path=os.path.join(work, f"preds.txt{suffix}"),
+        pred_lbl_path=os.path.join(work, f"labels.txt{suffix}"),
+        label_path=label_path,
         should_remove_de=should_remove_de)
     if losses and sum(weights) > 0:
         results["avg_loss"] = float(np.average(losses, weights=weights))

@@ -10,11 +10,17 @@ the JAX CLI's: a loader batch of 64, 2 accumulation steps (an update takes
 128 examples), lr 5e-5. The run saves a port checkpoint every
 ``--save_steps`` and at the end, then writes the dev set's token accuracy
 to ``dev_results.json`` (run_pretrain.py:242-251). Runs on CUDA with the
-fused kernels unless told otherwise.
+fused kernels unless told otherwise. Under torchrun ``--mesh data=N``
+trains data parallel over N ranks, one card each, as ``cli/train
+--distributed`` does: the update batch scales by N (the JAX CLI's
+pretrain_pho.py:97-103) and each rank takes its contiguous slice of it;
+rank 0 writes the checkpoints and ``dev_results.json``.
 
 Example (smoke, no corpus assets):
     python -m realise_tpu_torch.cli.pretrain_pho --synthetic --tiny \
         --max_steps 4 --device cpu --output_dir /tmp/pho
+    torchrun --nproc_per_node 2 -m realise_tpu_torch.cli.pretrain_pho \
+        --synthetic --mesh data=2 --max_steps 100 --output_dir /tmp/pho
 """
 
 from __future__ import annotations
@@ -28,15 +34,20 @@ import torch
 from realise_tpu_torch.cli.common import (
     add_common_args,
     build_config,
+    build_mesh,
     build_tokenizer,
     load_dataset,
     logger,
-    reject_unported,
     setup_logging,
     write_json,
     zero_padding_loss,
 )
 from realise_tpu_torch.data.dataset import batch_iterator, pad_examples
+from realise_tpu_torch.parallel.distributed import (
+    is_main_process,
+    local_slice,
+    process_index,
+)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,15 +71,20 @@ def token_accuracy(trainer, data, featurizer, batch_size: int = 64):
     (run_pretrain.py:242-251; ``token_accuracy`` of the JAX CLI). The last
     batch is padded to ``batch_size`` for the device and only its real rows
     are scored: padded duplicates count neither in the accuracy nor in the
-    loss (their loss positions are zeroed)."""
+    loss (their loss positions are zeroed). In a process group each rank
+    forwards its slice of every batch and scores the gathered predictions,
+    so every rank computes the same accuracy."""
     correct = total = 0
     losses, weights = [], []
     for examples in batch_iterator(data, batch_size, pad_final=False):
         n = len(examples)
-        host = featurizer.featurize_pho_pretrain(pad_examples(examples,
-                                                              batch_size))
+        padded = pad_examples(examples, batch_size)
+        host = featurizer.featurize_pho_pretrain(padded)
+        rows = local_slice(padded)
+        feed = (host if len(rows) == len(padded)
+                else featurizer.featurize_pho_pretrain(rows))
         out = trainer.eval_step(featurizer.device_batch(
-            zero_padding_loss(host, n)))
+            zero_padding_loss(feed, n, process_index() * len(rows))))
         mask = host["loss_masks"][:n].astype(bool)
         correct += int((out["pred_idx"][:n][mask]
                         == host["tgt_idx"][:n][mask]).sum())
@@ -84,8 +100,8 @@ def token_accuracy(trainer, data, featurizer, batch_size: int = 64):
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.model_type = "pho2-pretrain"
-    reject_unported(args)
     setup_logging()
+    mesh = build_mesh(args)  # forms the process group before the card
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import RealisePretrain
@@ -100,8 +116,9 @@ def main(argv=None) -> int:
                             generator=torch.Generator().manual_seed(args.seed))
     model.install_pho_vocab_tables(*featurizer.pho2_tables())
     # The loader batch is the MICRO batch (pretrain_pho.sh: 64 × 2 → an
-    # update of 128 examples).
+    # update of 128 examples), on each of the mesh's data ranks.
     batch_size = (args.per_device_train_batch_size
+                  * (mesh.data if mesh else 1)
                   * args.gradient_accumulation_steps)
     trainer = Trainer(
         cfg, model, learning_rate=args.learning_rate,
@@ -120,10 +137,10 @@ def main(argv=None) -> int:
                                            shuffle=True,
                                            seed=args.seed + epoch,
                                            pad_final=False):
-                feed = featurizer.featurize_pho_pretrain(
-                    pad_examples(examples, batch_size))
-                yield featurizer.device_batch(
-                    zero_padding_loss(feed, len(examples)))
+                rows = local_slice(pad_examples(examples, batch_size))
+                feed = featurizer.featurize_pho_pretrain(rows)
+                yield featurizer.device_batch(zero_padding_loss(
+                    feed, len(examples), process_index() * len(rows)))
             epoch += 1
 
     training_args = dict(vars(args))
@@ -132,7 +149,8 @@ def main(argv=None) -> int:
         path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
                                cfg, trainer_state=tr.state_dict(),
                                training_args=training_args)
-        logger.info("saved checkpoint %s", path)
+        if is_main_process():
+            logger.info("saved checkpoint %s", path)
 
     logger.info("pho-pretrain: %d examples, update batch %d, %d steps, %s, "
                 "kernels %s", len(train_data), batch_size, args.max_steps,
@@ -147,7 +165,8 @@ def main(argv=None) -> int:
                        seed=args.seed + 1)
     res = token_accuracy(trainer, dev, featurizer)
     logger.info("pho-pretrain dev: %s", res)
-    write_json(os.path.join(args.output_dir, "dev_results.json"), res)
+    if is_main_process():
+        write_json(os.path.join(args.output_dir, "dev_results.json"), res)
     return 0
 
 

@@ -9,11 +9,18 @@ defaults are the JAX CLI's: batch 512 (at most the number of chars), lr
 1e-3, no warmup, 8 epochs of ``chars // batch`` steps unless
 ``--max_steps``. The run saves a port checkpoint (every ``--save_steps`` if
 set, and at the end) and writes the classification accuracy over every
-char to ``dev_results.json``. Runs on CUDA unless told otherwise.
+char to ``dev_results.json``. Runs on CUDA unless told otherwise. Under
+torchrun ``--mesh data=N`` trains data parallel over N ranks, one card
+each: the batch scales by N, at most the number of chars and a multiple of
+N (the JAX CLI's pretrain_res.py:66-79), and each rank takes its
+contiguous slice of it; rank 0 writes the checkpoints and
+``dev_results.json``.
 
 Example (smoke):
     python -m realise_tpu_torch.cli.pretrain_res --synthetic --tiny \
         --num_train_epochs 1 --device cpu --output_dir /tmp/res
+    torchrun --nproc_per_node 2 -m realise_tpu_torch.cli.pretrain_res \
+        --synthetic --mesh data=2 --output_dir /tmp/res
 """
 
 from __future__ import annotations
@@ -28,12 +35,13 @@ from realise_tpu_torch.cli.common import (
     add_common_args,
     build_config,
     build_glyphs,
+    build_mesh,
     build_tokenizer,
     logger,
-    reject_unported,
     setup_logging,
     write_json,
 )
+from realise_tpu_torch.parallel.distributed import is_main_process, local_slice
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,7 +60,9 @@ def build_parser() -> argparse.ArgumentParser:
 def char_accuracy(trainer, char_ids: np.ndarray, batch_size: int) -> float:
     """Classification accuracy over every char (run_res_pretrain.py:229-235):
     the last batch is padded to ``batch_size`` with its last char and only
-    its real rows are scored (the JAX CLI's rule, pretrain_res.py:106-121)."""
+    its real rows are scored (the JAX CLI's rule, pretrain_res.py:106-121).
+    In a process group each rank forwards its slice of every batch and
+    scores the gathered predictions."""
     correct = 0
     for i in range(0, len(char_ids), batch_size):
         chunk = char_ids[i:i + batch_size]
@@ -60,7 +70,8 @@ def char_accuracy(trainer, char_ids: np.ndarray, batch_size: int) -> float:
         if n < batch_size:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:],
                                                      batch_size - n)])
-        preds = trainer.eval_step({"char_idx": chunk})["pred_idx"]
+        preds = trainer.eval_step(
+            {"char_idx": np.asarray(local_slice(chunk))})["pred_idx"]
         correct += int((preds[:n] == chunk[:n]).sum())
     return correct / max(len(char_ids), 1)
 
@@ -68,8 +79,8 @@ def char_accuracy(trainer, char_ids: np.ndarray, batch_size: int) -> float:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.model_type = "res-pretrain"
-    reject_unported(args)
     setup_logging()
+    mesh = build_mesh(args)  # forms the process group before the card
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import RealisePretrain
@@ -87,9 +98,14 @@ def main(argv=None) -> int:
     char_ids = np.nonzero(featurizer.cjk_token_mask())[0].astype(np.int64)
     logger.info("res-pretrain over %d chars", len(char_ids))
     batch_size = min(args.per_device_train_batch_size, len(char_ids))
+    data = mesh.data if mesh else 1
+    if data > 1:
+        batch_size = min(batch_size * data, len(char_ids))
+        batch_size -= batch_size % data
     if batch_size <= 0:
         raise SystemExit(f"res-pretrain needs at least one CJK vocab char "
-                         f"(have {len(char_ids)}); check the vocab file")
+                         f"per data rank (have {len(char_ids)} chars, data "
+                         f"axis {data}); check the vocab file")
     steps_per_epoch = max(len(char_ids) // batch_size, 1)
     total = (args.max_steps if args.max_steps > 0
              else int(steps_per_epoch * args.num_train_epochs))
@@ -104,7 +120,8 @@ def main(argv=None) -> int:
         while True:
             order = rng.permutation(len(char_ids))
             for i in range(0, len(order) - batch_size + 1, batch_size):
-                yield {"char_idx": char_ids[order[i:i + batch_size]]}
+                yield {"char_idx": np.asarray(local_slice(
+                    char_ids[order[i:i + batch_size]]))}
 
     training_args = dict(vars(args))
 
@@ -112,7 +129,8 @@ def main(argv=None) -> int:
         path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
                                cfg, trainer_state=tr.state_dict(),
                                training_args=training_args)
-        logger.info("saved checkpoint %s", path)
+        if is_main_process():
+            logger.info("saved checkpoint %s", path)
 
     summary = trainer.fit(batches(), max_steps=total,
                           logging_steps=args.logging_steps,
@@ -123,8 +141,9 @@ def main(argv=None) -> int:
 
     acc = char_accuracy(trainer, char_ids, batch_size)
     logger.info("res-pretrain accuracy: %.4f", acc)
-    write_json(os.path.join(args.output_dir, "dev_results.json"),
-               {"accuracy": acc})
+    if is_main_process():
+        write_json(os.path.join(args.output_dir, "dev_results.json"),
+                   {"accuracy": acc})
     return 0
 
 

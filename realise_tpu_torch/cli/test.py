@@ -6,13 +6,18 @@ Loads a port checkpoint (``saved_ckpt-{step}/`` with ``config.json`` and
 featurizer, forwards the test set with the (V, H) stream tables and the
 fused block kernels, and scores it with the SIGHAN metric (remove_de for
 year 13, src/test.py:152-159). Runs on CUDA unless told otherwise. A JAX
-checkpoint is converted first (README, "PyTorch/CUDA port").
+checkpoint is converted first (README, "PyTorch/CUDA port"). Under torchrun
+``--mesh data=N`` scores data parallel over N ranks, one card each: every
+rank forwards its slice of each batch and computes the same metrics from
+the gathered predictions; rank 0 writes ``test_results.json``.
 
 Example:
     python -m realise_tpu_torch.cli.test --ckpt_dir /tmp/out --synthetic \
         --device cpu
     python -m realise_tpu_torch.cli.test --ckpt_dir ckpts --data_dir data \
         --testset_year 13 --ckpt_num -1
+    torchrun --nproc_per_node 2 -m realise_tpu_torch.cli.test \
+        --ckpt_dir ckpts --data_dir data --mesh data=2
 """
 
 from __future__ import annotations
@@ -23,12 +28,12 @@ import os
 import torch
 
 from realise_tpu_torch.cli.common import (
-    add_unported,
+    add_mesh_arg,
+    build_mesh,
     build_tokenizer,
     evaluate_model,
     load_dataset,
     logger,
-    reject_unported,
     setup_logging,
     write_json,
 )
@@ -55,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device (default: cuda; 'cpu' to run on the CPU)")
     p.add_argument("--no_kernels", action="store_true",
                    help="plain PyTorch sub-blocks instead of the fused kernels")
-    add_unported(p, "--mesh")
+    add_mesh_arg(p)
     return p
 
 
@@ -83,11 +88,12 @@ def select_checkpoint(ckpt_dir: str, ckpt_num: int):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    reject_unported(args)
     setup_logging()
+    build_mesh(args)  # forms the process group before the card
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.parallel.distributed import is_main_process
     from realise_tpu_torch.training.checkpoint import load_checkpoint, load_config
     from realise_tpu_torch.training.trainer import Trainer
 
@@ -123,7 +129,8 @@ def main(argv=None) -> int:
                          should_remove_de=(args.testset_year == 13))
     for k in sorted(res):
         print(f"{k}: {res[k]:.4f}")
-    write_json(os.path.join(out_dir, "test_results.json"), res)
+    if is_main_process():
+        write_json(os.path.join(out_dir, "test_results.json"), res)
     return 0
 
 

@@ -28,9 +28,21 @@ pretraining stages' encoders on the initial weights as ``cli/merge`` does
 (``training/merge.merge_state_dicts``), the same bits in one step. Runs on
 CUDA with the fused kernels unless told otherwise.
 
+``--distributed`` (under torchrun, one process per card) trains data
+parallel over ``--mesh data=N`` (default every rank): the global batch is
+``per_device_train_batch_size × N × gradient_accumulation_steps``; every
+rank iterates the same global batch order, featurizes its contiguous slice
+and runs the whole model on it, and the Trainer all-reduces the step's sums
+(the JAX CLI's ``--distributed``, realise_tpu/cli/train.py:182-296). Only
+rank 0 writes checkpoints and result files; every rank scores, resumes and
+fast-forwards alike.
+
 Example (smoke, no corpus assets):
     python -m realise_tpu_torch.cli.train --synthetic --tiny --max_steps 2 \
         --do_train --do_eval --do_predict --device cpu --output_dir /tmp/out
+    torchrun --nproc_per_node 4 -m realise_tpu_torch.cli.train \
+        --distributed --mesh data=4 --synthetic --max_steps 8 \
+        --output_dir /tmp/dp
 """
 
 from __future__ import annotations
@@ -42,14 +54,13 @@ import torch
 
 from realise_tpu_torch.cli.common import (
     add_common_args,
-    add_unported,
     build_config,
     build_glyphs,
+    build_mesh,
     build_tokenizer,
     evaluate_model,
     load_dataset,
     logger,
-    reject_unported,
     setup_logging,
     write_json,
     zero_padding_loss,
@@ -114,14 +125,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "restoring params, BN stats, Adam moments, the step "
                         "counter and the dropout generator (the reference "
                         "loses optimizer state on restart)")
-    add_unported(p, "--distributed")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel under torchrun, one process per card: "
+                        "form the process group from torchrun's environment "
+                        "(NCCL; gloo with --device cpu) before the card is "
+                        "touched; the mesh defaults to data=WORLD_SIZE and "
+                        "each rank feeds its contiguous slice of every global "
+                        "batch")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    reject_unported(args)
     setup_logging()
+    mesh = build_mesh(args)  # forms the process group before the card
     from realise_tpu_torch.data.dataset import (
         batch_iterator,
         bucketed_batch_iterator,
@@ -131,6 +148,12 @@ def main(argv=None) -> int:
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import Realise
+    from realise_tpu_torch.parallel.distributed import (
+        barrier,
+        is_main_process,
+        local_slice,
+        process_index,
+    )
     from realise_tpu_torch.training.merge import merge_state_dicts
     from realise_tpu_torch.training.checkpoint import (
         list_checkpoints,
@@ -167,8 +190,9 @@ def main(argv=None) -> int:
     train_data = load_dataset(args, tokenizer, args.train_file,
                               num_synthetic=256, seed=args.seed)
     # The loader batch is the MICRO batch (run.py:193-207): an update takes
-    # bs × accum examples.
+    # bs × data × accum examples, each rank bs × accum of them.
     batch_size = (args.per_device_train_batch_size
+                  * (mesh.data if mesh else 1)
                   * args.gradient_accumulation_steps)
     buckets = ([int(x) for x in args.length_buckets.split(",")]
                if args.length_buckets else None)
@@ -222,9 +246,11 @@ def main(argv=None) -> int:
                     continue
                 # Pad a short batch here (fixed shapes) and zero the padded
                 # rows' loss; a bucket's batch takes the bucket's length.
-                feed = featurizer.featurize(pad_examples(examples, batch_size),
-                                            seq_len=seq_len)
-                feed = zero_padding_loss(feed, len(examples))
+                # Each rank featurizes its contiguous slice only.
+                rows = local_slice(pad_examples(examples, batch_size))
+                feed = featurizer.featurize(rows, seq_len=seq_len)
+                feed = zero_padding_loss(feed, len(examples),
+                                         process_index() * len(rows))
                 yield featurizer.device_batch(feed)
             skip = 0
             epoch += 1
@@ -235,12 +261,13 @@ def main(argv=None) -> int:
         path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
                                cfg, trainer_state=tr.state_dict(),
                                training_args=training_args)
-        logger.info("saved checkpoint %s", path)
+        if is_main_process():
+            logger.info("saved checkpoint %s", path)
 
     if args.do_train:
         logger.info("training: %d examples, batch %d, %d total steps, %s, "
-                    "kernels %s", len(train_data), batch_size, total_steps,
-                    device, trainer.use_kernels)
+                    "kernels %s, mesh %s", len(train_data), batch_size,
+                    total_steps, device, trainer.use_kernels, mesh)
         stream = batches() if args.no_prefetch else threaded_prefetch(batches())
         fit_kw = dict(logging_steps=args.logging_steps,
                       save_steps=args.save_steps, save_fn=save_fn)
@@ -286,11 +313,16 @@ def main(argv=None) -> int:
             all_results[str(step)] = res
             scored.append((ckpt_dir, res[args.order_metric]))
         if scored and args.remove_unused_ckpts:
+            # Every rank scored alike; rank 0 deletes, and the barrier keeps
+            # the others from loading a checkpoint mid-deletion.
             kept = retain_top_k(scored, args.num_save_ckpts,
-                                reverse=args.metric_reverse)
+                                reverse=args.metric_reverse,
+                                delete=is_main_process())
+            barrier()
             logger.info("kept the %d best checkpoints: %s", len(kept), kept)
-        write_json(os.path.join(args.output_dir, "dev_results.json"),
-                   all_results)
+        if is_main_process():
+            write_json(os.path.join(args.output_dir, "dev_results.json"),
+                       all_results)
         if scored:
             best = pick(scored, key=lambda t: t[1])
             logger.info("best checkpoint: %s (%s=%.2f)", best[0],
@@ -312,7 +344,9 @@ def main(argv=None) -> int:
                              batch_size=args.eval_batch_size,
                              label_path=label_file(args.predict_label_file))
         logger.info("predict: %s", res)
-        write_json(os.path.join(args.output_dir, "predict_results.json"), res)
+        if is_main_process():
+            write_json(os.path.join(args.output_dir, "predict_results.json"),
+                       res)
     return 0
 
 

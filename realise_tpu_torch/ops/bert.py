@@ -37,6 +37,7 @@ from realise_tpu_torch.ops.layers import (
     embed,
     layer_norm,
     random_key,
+    stream_value,
 )
 
 KeyPair = Tuple[int, int]
@@ -51,10 +52,15 @@ def _generator_for(generator: Optional[torch.Generator], *rates: float):
 
 def layer_seed(generator: Optional[torch.Generator]) -> int:
     """One int32 seed in [0, 2**31 - 1) (jax.random.randint's bounds in the
-    JAX encoder), drawn on the host; 0 without a generator."""
+    JAX encoder), drawn on the host and moved to the generator's stream
+    (``ops/layers.stream_value``: each data-parallel rank draws its own
+    masks); 0 without a generator."""
     if generator is None:
         return 0
-    return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=generator))
+    modulus = 2 ** 31 - 1
+    return stream_value(int(torch.randint(0, modulus, (1,),
+                                          generator=generator)),
+                        generator, modulus)
 
 
 def attention_bias_from_mask(attention_mask: torch.Tensor,

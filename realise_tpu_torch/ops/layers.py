@@ -53,11 +53,40 @@ def dropout(x: torch.Tensor, rate: float,
     return torch.where(mask.reshape(x.shape), x / keep, torch.zeros_like(x))
 
 
+class StreamGenerator(torch.Generator):
+    """A host generator of dropout keys and seeds for one of several
+    streams: every rank of a data-parallel run holds the same generator
+    state (one checkpoint restores them all) and draws the same values, and
+    :func:`stream_value` mixes the rank in, as the JAX shard_map step folds
+    ``axis_index("data")`` into its key (trainer.py:182-184). Stream 0 draws
+    exactly what a plain ``torch.Generator`` of the same seed draws."""
+
+    stream = 0
+
+
+def dropout_generator(seed: int, stream: int = 0) -> torch.Generator:
+    """A :class:`StreamGenerator` seeded with ``seed`` for ``stream``."""
+    gen = StreamGenerator()
+    gen.stream = stream
+    gen.manual_seed(seed)
+    return gen
+
+
+def stream_value(value: int, generator: torch.Generator, modulus: int) -> int:
+    """``value`` drawn from ``generator``, moved to its stream (unchanged on
+    stream 0 and for a plain generator), still in ``[0, modulus)``."""
+    stream = getattr(generator, "stream", 0)
+    if not stream:
+        return value
+    return (value + mix32(stream) + stream * 0x9E3779B1) % modulus
+
+
 def random_key(generator: torch.Generator) -> Tuple[int, int]:
-    """Two uint32 key words drawn on the host from ``generator``."""
+    """Two uint32 key words drawn on the host from ``generator`` (the first
+    moved to the generator's stream)."""
     words = torch.randint(0, 1 << 32, (2,), dtype=torch.int64,
                           generator=generator)
-    return int(words[0]), int(words[1])
+    return stream_value(int(words[0]), generator, 1 << 32), int(words[1])
 
 
 def dense(x: torch.Tensor, weight: torch.Tensor,

@@ -25,6 +25,11 @@ then :func:`save_checkpoint` here.
 
 The "score every checkpoint, keep the top k" workflow (run.py:473-505,
 train.sh:17-19) is :func:`retain_top_k`.
+
+In a process group (data parallelism: every rank holds the same weights
+and optimizer state) only rank 0 writes a checkpoint, and every rank waits
+at a barrier after the write, so a rank that loads it next finds it
+complete (``realise_tpu/training/checkpoint.py:47-80``). Every rank loads.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from realise_tpu_torch.config import RealiseConfig
+from realise_tpu_torch.parallel.distributed import barrier, is_main_process
 
 CKPT_PREFIX = "saved_ckpt-"
 MODEL_FILE = "model.pt"
@@ -58,8 +64,18 @@ def save_checkpoint(directory: str, step: int,
     Every file goes into ``saved_ckpt-{step}.tmp/``, which is renamed to
     ``saved_ckpt-{step}`` once all are written. A checkpoint of the same
     step already there (the final save after a ``--save_steps`` one) is
-    renamed aside first and deleted after."""
+    renamed aside first and deleted after. In a process group only rank 0
+    writes; every rank returns after the barrier that follows the write."""
     ckpt_dir = os.path.join(os.path.abspath(directory), f"{CKPT_PREFIX}{step}")
+    if is_main_process():
+        _write_checkpoint(ckpt_dir, model_state, cfg, trainer_state,
+                          training_args)
+    barrier()
+    return ckpt_dir
+
+
+def _write_checkpoint(ckpt_dir, model_state, cfg, trainer_state,
+                      training_args) -> None:
     tmp_dir, old_dir = ckpt_dir + ".tmp", ckpt_dir + ".old"
     shutil.rmtree(tmp_dir, ignore_errors=True)
     os.makedirs(tmp_dir)
@@ -77,7 +93,6 @@ def save_checkpoint(directory: str, step: int,
         os.replace(ckpt_dir, old_dir)
     os.replace(tmp_dir, ckpt_dir)
     shutil.rmtree(old_dir, ignore_errors=True)
-    return ckpt_dir
 
 
 def load_checkpoint(ckpt_dir: str, map_location="cpu") -> Dict[str, torch.Tensor]:

@@ -39,8 +39,27 @@ optimizer's state, the step and the dropout generator's state. The JAX step
 folds the step into its dropout key (trainer.py:135), so a JAX resume
 replays the same masks by construction; here the layer seeds come from a
 stateful generator, which must be restored for a resumed run to train on
-the masks of the run it continues. Not ported yet: meshes (ROADMAP queue A
-item 6).
+the masks of the run it continues.
+
+Data parallelism (``process_group``; the JAX Trainer's shard_map step,
+``train_step_shard``, trainer.py:167-243): one process per card, each
+holding the whole model and running the kernels on its own contiguous
+slice of the global batch, as that step's body runs on each device's
+shard. Each rank accumulates its loss sums, valid-token counts and
+gradients of the sums over its microbatches as above; then one all-reduce
+SUM per fixed-order bucket (every rank reduces the same tensors in the same
+order: a parameter without a gradient gets its zero one first) gives every
+rank the global sums, which are divided by the global count, so the clip
+and AdamW see the global-batch gradient on every rank. BatchNorm's batch
+statistics stay per rank, and its running statistics are averaged over the
+ranks after the step (the ``pmean`` of trainer.py:190-196). Every rank
+draws the same layer seeds and keys from one generator, moved to the
+rank's stream (``ops/layers.StreamGenerator``): rank 0 draws what a run
+without a group draws, and rank 0's ``trainer.pt`` restores every rank.
+``eval_step`` runs this rank's rows and gathers the predictions of every
+rank in rank order; its loss is the global sum over the global count. The
+(V, H) eval tables are built on every rank. Overlapping the all-reduce
+with the backward is not done.
 """
 
 from __future__ import annotations
@@ -51,6 +70,7 @@ from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from realise_tpu_torch.config import RealiseConfig
@@ -61,6 +81,8 @@ from realise_tpu_torch.models.realise import (
     precompute_inference_tables,
 )
 from realise_tpu_torch.ops.kernels import kernels_unviable_reason
+from realise_tpu_torch.ops.layers import dropout_generator
+from realise_tpu_torch.parallel.distributed import gather_rows
 from realise_tpu_torch.training.optim import (
     clip_by_global_norm,
     linear_warmup_schedule,
@@ -68,6 +90,9 @@ from realise_tpu_torch.training.optim import (
 )
 
 logger = logging.getLogger("realise_tpu_torch")
+
+# Elements of one all-reduce bucket (float32: 64 MB).
+BUCKET_ELEMENTS = 1 << 24
 
 
 class Trainer:
@@ -78,7 +103,9 @@ class Trainer:
     for CUDA; a config the kernels cannot run raises with the reason unless
     the caller passes ``use_kernels=False``. ``per_token_streams``: run the
     GRU and conv streams per token slot, the reference path the factorized
-    streams are checked and timed against."""
+    streams are checked and timed against. ``process_group``: the ranks
+    this trainer's steps all-reduce over; default the initialized default
+    group, else none (one process)."""
 
     def __init__(
         self,
@@ -95,6 +122,7 @@ class Trainer:
         seed: int = 17,
         device=None,
         per_token_streams: bool = False,
+        process_group=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -120,7 +148,13 @@ class Trainer:
                                         weight_decay, adam_epsilon)
         self.schedule = linear_warmup_schedule(learning_rate, warmup_steps,
                                                total_steps)
-        self.generator = torch.Generator().manual_seed(seed)
+        if process_group is None and dist.is_initialized():
+            process_group = dist.group.WORLD
+        self.process_group = process_group
+        self.rank = 0 if process_group is None else dist.get_rank(process_group)
+        self.world_size = (1 if process_group is None
+                           else dist.get_world_size(process_group))
+        self.generator = dropout_generator(seed, self.rank)
         self.step = 0
         self._eval_tables: Optional[Dict[str, torch.Tensor]] = None
 
@@ -162,19 +196,62 @@ class Trainer:
                 out["loss_sum"].backward()
             loss_sum += out["loss_sum"].detach()
             count += out["loss_count"].detach()
+        grads = []
+        for p in self.model.parameters():
+            if p.grad is None:  # unused this step: a zero gradient, as in JAX
+                p.grad = torch.zeros_like(p)
+            grads.append(p.grad)
+        if self.process_group is not None:
+            with span("all-reduce"):
+                self.all_reduce_sum([loss_sum, count] + grads)
         with span("clip+adamw"):
             denom = torch.clamp(count, min=1.0)
-            grads = []
-            for p in self.model.parameters():
-                if p.grad is None:  # unused this step: a zero gradient, as in JAX
-                    p.grad = torch.zeros_like(p)
-                p.grad.div_(denom)
-                grads.append(p.grad)
+            for g in grads:
+                g.div_(denom)
             if self.max_grad_norm is not None:
                 clip_by_global_norm(grads, self.max_grad_norm)
             self.optimizer.step()
+        if self.process_group is not None:
+            self._average_running_stats()
         self.step += 1
         return loss_sum / denom
+
+    def all_reduce_sum(self, tensors) -> None:
+        """Sum each tensor over the ranks, in place: flattened into buckets of
+        at most ``BUCKET_ELEMENTS`` in list order (one dtype a bucket), one
+        all-reduce each. The same list on every rank reduces the same
+        buckets, and a bucket's sum is one fixed-order reduction, so two
+        runs give equal bits."""
+        bucket, size = [], 0
+
+        def flush():
+            flat = torch.cat([t.reshape(-1) for t in bucket])
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                            group=self.process_group)
+            offset = 0
+            for t in bucket:
+                t.copy_(flat[offset:offset + t.numel()].view_as(t))
+                offset += t.numel()
+
+        for t in tensors:
+            if bucket and (size + t.numel() > BUCKET_ELEMENTS
+                           or t.dtype != bucket[0].dtype):
+                flush()
+                bucket, size = [], 0
+            bucket.append(t)
+            size += t.numel()
+        if bucket:
+            flush()
+
+    def _average_running_stats(self) -> None:
+        """BatchNorm's running statistics, the mean over the ranks."""
+        stats = [b for name, b in self.model.named_buffers()
+                 if name.endswith(("running_mean", "running_var"))]
+        if stats:
+            with torch.no_grad():
+                self.all_reduce_sum(stats)
+                for b in stats:
+                    b.div_(self.world_size)
 
     def state_dict(self) -> Dict[str, Any]:
         """The optimizer's state, the step and the dropout generator's state
@@ -209,7 +286,9 @@ class Trainer:
         """The deterministic forward over a featurized host batch →
         {'pred_idx': (B, S) argmax ids ((N,) for ``char_idx``), 'loss': the
         mean loss over its loss positions, when it has targets} on the
-        host."""
+        host. In a process group the batch is this rank's rows: every rank
+        gets the predictions of all ranks' rows in rank order, and the loss
+        is their global sum over their global count."""
         self.model.eval()
         if self.pretrain:
             batch = dict(device_batch)
@@ -221,10 +300,16 @@ class Trainer:
             out = self.model(to_device(device_batch, self.device),
                              tables=self._eval_tables,
                              use_kernels=self.use_kernels)
-        res = {"pred_idx": out["logits"].argmax(-1).cpu().numpy()}
+        pred = out["logits"].argmax(-1)
+        if self.process_group is not None:
+            pred = gather_rows(pred, self.process_group)
+        res = {"pred_idx": pred.cpu().numpy()}
         if "loss_sum" in out:
-            res["loss"] = float(out["loss_sum"]
-                                / torch.clamp(out["loss_count"], min=1.0))
+            sums = [out["loss_sum"].float().clone(),
+                    out["loss_count"].float().clone()]
+            if self.process_group is not None:
+                self.all_reduce_sum(sums)
+            res["loss"] = float(sums[0] / torch.clamp(sums[1], min=1.0))
         return res
 
     def fit(

@@ -16,7 +16,6 @@ from realise_tpu.cli import train as jtrain
 from realise_tpu.config import PHO2_VOCAB_SIZE, config_for
 from realise_tpu.training.checkpoint import retain_top_k as jax_retain_top_k
 from realise_tpu_torch.cli import train as ttrain
-from realise_tpu_torch.cli.common import UNPORTED
 from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.models.realise import Realise
 from realise_tpu_torch.training import checkpoint as tckpt
@@ -189,8 +188,9 @@ def test_training_args_match_the_jax_cli(cli_runs):
     theirs["do_train"] = True  # both CLIs default to training
     assert set(ours) - set(theirs) == {"device", "no_kernels"}
     assert set(theirs) - set(ours) == {"platform", "use_pallas", "remat"}
-    # The flags of unported parts hold None in the port (it refuses them).
-    shared = (set(ours) & set(theirs)) - {f[2:] for f in UNPORTED}
+    # --mesh and --distributed too: None and False, as in the JAX CLI.
+    shared = set(ours) & set(theirs)
+    assert {"mesh", "distributed"} <= shared
     assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
 
 

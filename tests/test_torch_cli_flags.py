@@ -9,7 +9,6 @@ import pytest
 from realise_tpu.cli import correct as jcorrect
 from realise_tpu_torch.cli import correct as tcorrect
 from realise_tpu_torch.cli import train as ttrain
-from realise_tpu_torch.cli.common import UNPORTED
 from realise_tpu_torch.config import RealiseConfig
 from realise_tpu_torch.text.vocab import REAL_VOCAB_CJK_CHARS, build_synthetic_vocab
 from torch_port_fixtures import one_intra_op_thread
@@ -39,17 +38,16 @@ def _options(parser):
 
 @pytest.mark.parametrize("name", CLIS)
 def test_port_cli_takes_the_jax_flags(name):
-    """The port's option strings are the JAX parser's, less the renames,
-    the flags left out on purpose and the unported ones; each unported flag
-    the port takes is one the JAX CLI has (so it exits naming its ROADMAP
-    item instead of being unknown)."""
+    """The port's option strings are the JAX parser's, less the renames
+    and the flags left out on purpose; the data-parallel flags (--mesh,
+    --distributed) are taken wherever the JAX CLI takes them."""
     theirs = _options(importlib.import_module(
         f"realise_tpu.cli.{name}").build_parser())
     ours = _options(importlib.import_module(
         f"realise_tpu_torch.cli.{name}").build_parser())
-    assert theirs - ours <= JAX_ONLY | LEFT_OUT | set(UNPORTED), theirs - ours
+    assert theirs - ours <= JAX_ONLY | LEFT_OUT, theirs - ours
     assert ours - theirs <= PORT_ONLY, ours - theirs
-    assert (ours & set(UNPORTED)) <= theirs
+    assert (theirs & {"--mesh", "--distributed"}) <= ours
 
 
 def test_cli_correct_reads_the_vocab_of_data_dir(tmp_path, monkeypatch, capsys):

@@ -102,12 +102,21 @@ def test_cli_trains_and_the_corrector_serves(tmp_path):
 
 
 def test_cli_refuses_unported_flags_and_missing_cuda(tmp_path, monkeypatch):
-    with pytest.raises(SystemExit, match="ROADMAP queue A item 6"):
+    """--distributed needs torchrun's environment, --mesh the JAX syntax and
+    a mesh the process group holds (tests/test_torch_parallel_cli.py runs
+    them under two ranks); without --device and without CUDA it raises."""
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
                      "--distributed"])
-    with pytest.raises(SystemExit, match="--mesh .*item 6"):
+    with pytest.raises(SystemExit, match="--mesh: bad axis 'data:2'"):
         ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
                      "--mesh", "data:2"])
+    with pytest.raises(SystemExit, match="needs 2 processes"):
+        ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
+                     "--mesh", "data=2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttrain.main(["--synthetic", "--tiny", "--max_steps", "1",

@@ -242,9 +242,12 @@ def test_cli_test_device_and_checkpoint_rules(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="no checkpoints"):
         ttest.main(["--ckpt_dir", str(tmp_path), "--synthetic", "--device",
                     "cpu"])
-    with pytest.raises(SystemExit, match="item 6"):
-        ttrain.main(["--synthetic", "--output_dir", str(tmp_path),
-                     "--distributed"])
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="needs 2 processes"):
+        ttest.main(["--ckpt_dir", str(tmp_path), "--synthetic", "--device",
+                    "cpu", "--mesh", "data=2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ttest.main(["--ckpt_dir", str(tmp_path), "--synthetic"])

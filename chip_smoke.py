@@ -196,7 +196,35 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    trace equal, rank 0 alone writing the checkpoint, the step time, the
    all-reduce's time and sentences/s; on one card (d) logs that it was
    skipped. The launches of (a)'s distributed run and of (c)'s steps and
-   gathered eval on both ranks join the record.
+   gathered eval on both ranks join the record;
+16. tensor parallelism (``parallel/tensor.py``, the ``model`` axis) at the
+   published arch3 width (12 + 4 + 3 layers, H=768, 12 heads, I=3072,
+   V=21128), every rank a process of a gloo group on the one card: (a)
+   ``data=1,model=2``, float32 at dropout 0, one step of 16 rows at S=128
+   against one process on the plain path over the same rows: the loss and
+   the clip's norm within 1e-5 relative, every gathered gradient within
+   1e-4 of its tensor's largest entry (the glyph stream's within 1.5e-3),
+   every updated weight within 1e-4 of its largest entry beyond Adam's 2
+   lr (at most 0.1% of them using that slack), the BN running statistics
+   within 1e-5; (d) the mesh's checkpoint (full tensors) loaded in one
+   process and stepped: its next step within (a)'s limits of the mesh's;
+   (b) bf16 at the published dropout, three steps, twice: after every step
+   the replicated weights the same bits on both ranks, a second call the
+   same bits, the first step's dropout keys and masks (kept count and
+   index sum, the head-split blocks summed over the ranks) one process's
+   with the same seed, the weights within 2^-6 of its, and the eval's
+   argmax one process's on >= 99% of the clearly decided tokens; the step
+   time and the model group's reduces (count, MiB, CUDA-event ms) beside
+   one process's; (c) ``data=2,model=2`` on four ranks, 8 rows a data rank
+   at S=64, float32, against one process on the 16 rows (BN statistics
+   included), (a)'s limits; (e) with two or more cards, ``torchrun`` of
+   ``cli/train --distributed --mesh data=1,model=2`` (and
+   ``data=2,model=2`` at four) on NCCL, 4 steps at B=64 a data rank: every
+   rank's loss trace equal, no kernel launched, the step time, the model
+   group's reduces' CUDA-event ms and sentences/s beside 15d's; on one
+   card (e) logs that it was skipped. No kernel runs on the phase's path
+   (a model axis runs the plain sub-blocks): every launch counter must read
+   0 after it.
 
 The last three lines are the kernels' JSON record (all six kernels), the
 card's name and power limit as nvidia-smi prints them, and the run's JSON
@@ -1360,10 +1388,11 @@ def check_batch_invariance(device, cfg, corrector, card):
 
 
 # ---------------------------------------------------------------- training
-def train_batches(cfg, n, batch_size, seed):
+def train_batches(cfg, n, batch_size, seed, seq_len=128):
     """``n`` host batches of synthetic sentences (20-100 chars, the JAX
-    package's bench data) featurized at bucket 128 through the Featurizer
-    (a pinyin pretraining config's: ``featurize_pho_pretrain``)."""
+    package's bench data) featurized at ``seq_len`` (bucket 128) through the
+    Featurizer (a pinyin pretraining config's: ``featurize_pho_pretrain``,
+    at the config's length)."""
     from realise_tpu_torch.data.dataset import synthetic_dataset
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
@@ -1379,7 +1408,7 @@ def train_batches(cfg, n, batch_size, seed):
     def featurize(examples):
         if cfg.fusion == "pretrain":
             return feat.featurize_pho_pretrain(examples)  # bucket 128: the config's
-        return feat.featurize(examples, seq_len=128)
+        return feat.featurize(examples, seq_len=seq_len)
 
     return [feat.device_batch(featurize(data[i * batch_size:(i + 1) * batch_size]))
             for i in range(n)]
@@ -3294,13 +3323,13 @@ def checkpoint_bits(a, b):
     return bad
 
 
-def param_checksums(model):
+def param_checksums(params):
     """One int64 checksum of each parameter's bits (a position-weighted sum
     of its int32 words, wrapping): equal bits, equal sums."""
     import torch
 
     out = []
-    for p in model.parameters():
+    for p in params:
         words = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
         weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
         out.append((words * weights).sum())
@@ -3357,6 +3386,8 @@ def dp_rank(rank, work, device_type="cuda"):
     from realise_tpu_torch.ops.layers import dropout_generator
     from realise_tpu_torch.parallel.distributed import (gather_rows,
                                                         initialize, shutdown)
+    from realise_tpu_torch.parallel.mesh import make_mesh
+    from realise_tpu_torch.parallel.tensor import MeshGroups
     from realise_tpu_torch.text.tokenizer import WordPieceTokenizer
     from realise_tpu_torch.text.vocab import (REAL_VOCAB_CJK_CHARS,
                                               build_synthetic_vocab,
@@ -3421,7 +3452,7 @@ def dp_rank(rank, work, device_type="cuda"):
             sums, losses = [], []
             for b in batches[:3]:
                 losses.append(float(tr.train_step(mine(b))))
-                sums.append(param_checksums(tr.model))
+                sums.append(param_checksums(tr.model.parameters()))
             if call == 0:
                 launches = {fn.__name__: fn.launches for fn in wrappers}
             calls.append((losses, torch.stack(sums)))
@@ -3452,7 +3483,8 @@ def dp_rank(rank, work, device_type="cuda"):
         got = tr.eval_step(mine(eval_batch))
         for fn in wrappers:
             launches[fn.__name__] += fn.launches - before[fn.__name__]
-        alone = Trainer(cfg, tr.model, device=device, process_group=solo)
+        alone = Trainer(cfg, tr.model, device=device, mesh=MeshGroups(
+            make_mesh({"data": 1}, world_size=1), data_group=solo))
         alone.prepare_eval_tables(feat)
         want = alone.eval_step(eval_batch)
         out["15c"].update(
@@ -3472,8 +3504,10 @@ def dp_cli_rank(work, argv):
     loss, the train kernels' launches and the CUDA-event time of its
     all-reduces (the flat copies and NCCL, from the end of the backward)
     recorded, the kernel time of steps 4-9 (``DP_PROFILE``; NCCL's
-    kernels apart, since they include the wait for the other ranks), and
-    the checkpoints the rank wrote. Writes ``work/rank{RANK}.json``."""
+    kernels apart, since they include the wait for the other ranks), the
+    CUDA-event time of the model group's reduces (phase 16e's tensor
+    parallelism; 0 without a model axis) and the checkpoints the rank
+    wrote. Writes ``work/rank{RANK}.json``."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -3500,17 +3534,20 @@ def dp_cli_rank(work, argv):
         events.append((start, end))
 
     prof = None
+    model_reduces = ModelReduces()
 
     def train_step(self, batch):
         before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         events.clear()
+        model_reduces.take()
         t = time.perf_counter()
         loss = float(step(self, batch))  # reads back: synchronised
         rec["steps"].append(dict(
             seconds=time.perf_counter() - t, loss=loss,
             all_reduce_ms=sum(a.elapsed_time(b) for a, b in events),
+            model_reduce_ms=model_reduces.take()[2],
             length=int(np.shape(batch["src_idx"])[1]),
             rows=int((np.asarray(batch["loss_masks"]).sum(1) > 0).sum()),
             launches=[fn.launches - n for fn, n in
@@ -3526,6 +3563,7 @@ def dp_cli_rank(work, argv):
     Trainer.train_step, checkpoint._write_checkpoint = train_step, recording_write
     Trainer.all_reduce_sum = all_reduce_sum
     try:
+        model_reduces.__enter__()
         if torch.cuda.is_available():
             with profile(activities=[ProfilerActivity.CUDA],
                          schedule=schedule(repeat=1, **DP_PROFILE)) as prof:
@@ -3542,6 +3580,7 @@ def dp_cli_rank(work, argv):
         else:
             rc = cli_train.main(argv)
     finally:
+        model_reduces.__exit__()
         shutdown()
     rec["rc"] = rc
     rec["threads"] = torch.get_num_threads()
@@ -3631,12 +3670,13 @@ def dp_scaling(card, root, data_flags, layers, cards):
     log("data parallel: sentences/s by cards " + ", ".join(
         f"{n}: {r:.1f} ({r / base:.2f}x)" for n, (_, r) in rates.items())
         + f" [{card}]")
+    return {n: r for n, (_, r) in rates.items()}
 
 
 def data_parallel(device, card):
     """Phase 15: data parallelism on the card. Returns the kernels' launches
     on its path (15a's distributed cli/train, 15c's steps and eval on both
-    ranks)."""
+    ranks) and 15d's sentences/s by card count ({} on one card)."""
     import math
 
     import torch
@@ -3745,15 +3785,625 @@ def data_parallel(device, card):
 
         # 15d: the CLI on NCCL over several cards, when the host has them.
         count = torch.cuda.device_count()
+        rates = {}
         if count >= 2:
-            dp_scaling(card, root, data_flags, layers,
-                       [n for n in (1, 2, 4) if n <= count])
+            rates = dp_scaling(card, root, data_flags, layers,
+                               [n for n in (1, 2, 4) if n <= count])
         else:
             log("data parallel 15d: skipped, one card (the multi-card "
                 "torchrun runs need two or more)")
     log(f"data parallel: launches {launches}; phase "
         f"{time.perf_counter() - started:.1f} s [{card}]")
+    return launches, rates
+
+
+# Phase 16: tensor parallelism (the ``model`` axis) on the one card, each
+# rank a process of a gloo group (NCCL refuses two ranks on one card).
+# (a) and (d): data=1,model=2, float32, dropout 0, TP_ROWS rows at S=128;
+# (c): data=2,model=2, TP_DP_ROWS rows a data rank at S=64. Each against
+# one process on the plain path over the same rows (GSPMD semantics: the
+# global batch's BatchNorm statistics): the loss and the clip's norm within
+# TP_LOSS_REL relative, every gathered gradient and updated weight within
+# TP_REL of its tensor's largest entry (the gradients' largest floored at
+# 1e-4 of the largest over all tensors, as phase 15b floors them: the key
+# biases' gradient is zero in exact arithmetic), the BN running statistics
+# within FACTOR_BN_TOL. Adam's first steps move a weight by about the
+# learning rate whatever the size of its gradient, so a skipped or
+# sign-flipped update parts a weight from one process's by about lr or
+# 2 lr, while two summation orders part it by far less, but where they
+# disagree on the sign of a near-zero gradient (the key biases' gradient is
+# all rounding noise), by up to 2 lr: so every updated weight lies within
+# 2 lr of one process's, and at most TP_FLIP_SHARE of them further than
+# TP_NEAR lr (the rule of tests/test_torch_tensor_parallel.py, which holds
+# it to fail a skipped and a sign-flipped update of the split weights).
+# The glyph stream's gradients pass the BatchNorm backward over its rows,
+# whose mean subtractions cancel most of each sum, so the summation order
+# of the gradient reaching them moves them more than the others (most with
+# a data axis, whose ranks' parts the all-reduce adds; PERF.md §6): they
+# take phase 8's PATH_GRAD_REL, the limit of those tensors where two
+# float32 summation orders meet.
+TP_ROWS, TP_DP_ROWS = 16, 8
+TP_LOSS_REL, TP_REL, TP_LR, TP_FLIP_SHARE, TP_NEAR = 1e-5, 1e-4, 1e-5, 1e-3, 0.1
+TP_BF16_STEPS = 3
+
+
+class ModelReduces:
+    """CUDA events around every collective of ``parallel/tensor.py`` (the
+    model group's all-reduces, forward and backward, and its gathers): the
+    module's ``dist`` swapped for a shim that times ``all_reduce``."""
+
+    def __init__(self):
+        self.events = []
+
+    def __enter__(self):
+        import torch
+        import torch.distributed as dist
+
+        from realise_tpu_torch.parallel import tensor
+
+        events = self.events
+
+        class Shim:
+            def __getattr__(self, name):
+                return getattr(dist, name)
+
+            @staticmethod
+            def all_reduce(t, *a, **kw):
+                if t.device.type != "cuda":
+                    return dist.all_reduce(t, *a, **kw)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                dist.all_reduce(t, *a, **kw)
+                end.record()
+                events.append((start, end, t.numel() * t.element_size()))
+
+        self._module = tensor
+        tensor.dist = Shim()
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        self._module.dist = dist
+
+    def take(self):
+        """(count, bytes, ms) of the reduces since the last call."""
+        import torch
+
+        if self.events:
+            torch.cuda.synchronize()
+        out = (len(self.events), sum(e[2] for e in self.events),
+               sum(a.elapsed_time(b) for a, b, _ in self.events))
+        self.events.clear()
+        return out
+
+
+@contextlib.contextmanager
+def recorded_norms():
+    """The norms the Trainer's clip returns, in order."""
+    from realise_tpu_torch.training import trainer as trainer_module
+
+    norms = []
+    clip = trainer_module.clip_by_global_norm
+
+    def recording(*a, **kw):
+        norm = clip(*a, **kw)
+        norms.append(float(norm))
+        return norm
+
+    trainer_module.clip_by_global_norm = recording
+    try:
+        yield norms
+    finally:
+        trainer_module.clip_by_global_norm = clip
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """(key, kept elements, the sum of their indices in the global array,
+    head-split) of every dropout call of the BERT stacks and the model, in
+    order: the mask is the call's dropout of ones."""
+    import torch
+
+    from realise_tpu_torch.models import realise as realise_module
+    from realise_tpu_torch.ops import bert as bert_module
+    from realise_tpu_torch.ops.layers import dropout, global_index
+
+    calls = []
+
+    def recording(x, rate, key, layout=None):
+        kept = dropout(torch.ones(x.shape, device=x.device), rate, key,
+                       layout) != 0
+        idx = (torch.arange(x.numel(), device=x.device).reshape(x.shape)
+               if layout is None else
+               global_index(x.shape, *layout, device=x.device))
+        calls.append((list(key), int(kept.sum()), int(idx[kept].sum()),
+                      x.dim() == 4))
+        return dropout(x, rate, key, layout)
+
+    bert_module.dropout = realise_module.dropout = recording
+    try:
+        yield calls
+    finally:
+        bert_module.dropout = realise_module.dropout = dropout
+
+
+def gathered_grads(tr):
+    """Every parameter's gradient, the split ones gathered whole."""
+    from realise_tpu_torch.parallel.tensor import gather_tensor
+
+    return {n: (gather_tensor(p.grad, tr.splits[n], tr.groups.model_group)
+                if n in tr.splits else p.grad.clone())
+            for n, p in tr.model.named_parameters()}
+
+
+def rel_errors(got, want, floor=0.0, rel=None, slack=0.0):
+    """(max over tensors of (max |got - want| - ``slack``) / max(max |want|,
+    floor), its name) over ``want``'s floating-point entries; with ``rel``
+    also the share of all their elements further than ``rel`` · max |want|
+    of their tensor."""
+    worst, name, beyond, total = 0.0, None, 0, 0
+    for n, w in want.items():
+        if not w.is_floating_point():
+            continue
+        d = (got[n].float() - w.float()).abs()
+        scale = max(w.float().abs().max().item(), floor, 1e-30)
+        err = max(d.max().item() - slack, 0.0) / scale
+        if err > worst:
+            worst, name = err, n
+        if rel is not None:
+            beyond += int((d > rel * scale).sum())
+            total += d.numel()
+    if rel is None:
+        return worst, name
+    return worst, name, beyond / max(total, 1)
+
+
+def weight_errors(got, want, lr):
+    """(max |got - want| / ``lr``, its name, the share of the elements
+    further than TP_NEAR · ``lr``) over ``want``'s floating-point entries
+    but the BatchNorm running statistics (held apart)."""
+    worst, name, beyond, total = 0.0, None, 0, 0
+    for n, w in want.items():
+        if not w.is_floating_point() or "running_" in n:
+            continue
+        d = (got[n].double() - w.double()).abs()
+        err = d.max().item() / lr
+        if err > worst:
+            worst, name = err, n
+        beyond += int((d > TP_NEAR * lr).sum())
+        total += d.numel()
+    return worst, name, beyond / max(total, 1)
+
+
+def weights_agree(errors) -> bool:
+    """:func:`weight_errors` within the limits: no weight beyond 2 lr, at
+    most TP_FLIP_SHARE of them beyond TP_NEAR lr."""
+    return errors[0] <= 2 and errors[2] <= TP_FLIP_SHARE
+
+
+def mask_agreement(rank_masks, want_masks, model_size):
+    """For each dropout call that :func:`recorded_masks` recorded in one
+    process, whether the mesh's ranks (in rank order) drew its mask: their
+    blocks' kept counts and global index sums add up to one process's. A
+    head-split call's blocks are every rank's; a call on hidden rows has
+    the same rows on a data index's model ranks, which must draw the same
+    block, so its blocks are those of model index 0."""
+    agree = []
+    for i, (_, *want, heads) in enumerate(want_masks):
+        got = [rk[i][1:3] for rk in rank_masks]
+        blocks, same = got, True
+        if not heads:
+            blocks = got[::model_size]
+            same = all(g == got[r - r % model_size] for r, g in enumerate(got))
+        agree.append(same and [sum(b[0] for b in blocks),
+                               sum(b[1] for b in blocks)] == want)
+    return agree
+
+
+def tp_step_check(mesh, rank, cfg, batch, device, second=None, work=None):
+    """One float32 step of the rank's rows of ``batch`` under ``mesh``
+    (16a, 16c) against one process on the plain path over all of them; on
+    rank 0 the errors. With ``work`` (16d) the mesh's checkpoint after the
+    step is loaded in one process, and both take a step on ``second``."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.parallel.distributed import local_slice
+    from realise_tpu_torch.parallel.mesh import make_mesh
+    from realise_tpu_torch.parallel.tensor import MeshGroups
+    from realise_tpu_torch.training.checkpoint import (load_checkpoint,
+                                                       load_trainer_state,
+                                                       save_checkpoint)
+    from realise_tpu_torch.training.trainer import Trainer
+
+    model = seeded_model(cfg, SEED + 30)
+    reference = copy.deepcopy(model) if rank == 0 else None
+    kw = dict(learning_rate=TP_LR, max_grad_norm=1.0, device=device)
+    d, n = mesh.data_index(rank), mesh.data
+
+    def mine(b):
+        return {k: np.asarray(local_slice(v, d, n)) for k, v in b.items()}
+
+    with recorded_norms() as norms:
+        tr = Trainer(cfg, model, mesh=mesh, **kw)
+        if tr.use_kernels or not tr.tensor_parallel:
+            fail(f"tensor parallel: a trainer under {mesh} has kernels "
+                 f"{tr.use_kernels}, split {tr.tensor_parallel}")
+        loss = float(tr.train_step(mine(batch)))
+        norm = norms[-1]
+        grads = gathered_grads(tr)
+        weights = {k: v.clone() for k, v in tr.model_state_dict().items()}
+        stats = bn_state(tr.model)
+        if work is not None:
+            ckpt = save_checkpoint(os.path.join(work, "tp_ckpt"), 1,
+                                   tr.model_state_dict(), cfg,
+                                   trainer_state=tr.state_dict())
+            loss2 = float(tr.train_step(mine(second)))
+            weights2 = tr.model_state_dict()
+        res = {}
+        if rank == 0:
+            alone = MeshGroups(make_mesh({"data": 1}, world_size=1))
+            ref = Trainer(cfg, reference, mesh=alone, use_kernels=False, **kw)
+            want_loss = float(ref.train_step(batch))
+            want_norm = norms[-1]
+            want_grads = {n_: p.grad for n_, p in
+                          ref.model.named_parameters()}
+            floor = 1e-4 * max(g.abs().max().item()
+                               for g in want_grads.values())
+            glyph = {k for k in want_grads if k.startswith("resnet.")}
+            grad_rel, grad_name = rel_errors(grads, {
+                k: g for k, g in want_grads.items() if k not in glyph}, floor)
+            conv_rel, conv_name = rel_errors(grads, {
+                k: want_grads[k] for k in glyph}, floor)
+            weight_lr, weight_name, flips = weight_errors(
+                weights, ref.model.state_dict(), TP_LR)
+            want_stats = bn_state(ref.model)
+            res = dict(
+                loss=loss, want_loss=want_loss,
+                loss_rel=abs(loss - want_loss) / abs(want_loss),
+                norm=norm, want_norm=want_norm,
+                norm_rel=abs(norm - want_norm) / abs(want_norm),
+                grad_rel=grad_rel, grad_name=grad_name, conv_rel=conv_rel,
+                conv_name=conv_name, weight_lr=weight_lr,
+                weight_name=weight_name, flips=flips,
+                bn=max((stats[k] - s).abs().max().item()
+                       for k, s in want_stats.items()))
+            del want_grads
+            if work is not None:
+                ref.model.load_state_dict(load_checkpoint(ckpt))
+                ref.load_state_dict(load_trainer_state(ckpt))
+                want2 = float(ref.train_step(second))
+                w_lr, w_name, w_flips = weight_errors(
+                    weights2, ref.model.state_dict(), TP_LR)
+                res["16d"] = dict(loss=loss2, one_process=want2,
+                                  loss_rel=abs(loss2 - want2) / abs(want2),
+                                  weight_lr=w_lr, weight_name=w_name,
+                                  flips=w_flips)
+            del ref
+        del tr, model, reference, grads, weights
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def tp_bf16(mesh, rank, cfg, batches, device):
+    """16b: three bf16 steps at the published dropout under ``mesh``, twice
+    from one init, each step's replicated weights' checksums gathered; the
+    first step's dropout calls; the step time and the model group's
+    reduces; then on rank 0 one process's three steps with the same seed
+    (masks, weights) and the eval of both."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.data.features import to_device
+    from realise_tpu_torch.parallel.distributed import gather_rows
+    from realise_tpu_torch.parallel.mesh import make_mesh
+    from realise_tpu_torch.parallel.tensor import MeshGroups
+    from realise_tpu_torch.training.trainer import Trainer
+
+    model = seeded_model(cfg, SEED + 31)
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    reference = copy.deepcopy(model) if rank == 0 else None
+    runs = []
+    for call in range(2):
+        model.load_state_dict(sd)
+        tr = Trainer(cfg, model, device=device, seed=SEED, mesh=mesh)
+        replicated = [p for n, p in tr.model.named_parameters()
+                      if n not in tr.splits]
+        losses, sums, secs, reduces = [], [], [], []
+        masks = None
+        with ModelReduces() as timer:
+            for i, b in enumerate(batches[:TP_BF16_STEPS]):
+                sync(device)
+                timer.take()
+                t = time.perf_counter()
+                if i == 0 and call == 0:
+                    with recorded_masks() as masks:
+                        losses.append(float(tr.train_step(b)))
+                else:
+                    losses.append(float(tr.train_step(b)))
+                secs.append(time.perf_counter() - t)
+                reduces.append(timer.take())
+                sums.append(param_checksums(replicated))
+        runs.append(dict(losses=losses, sums=torch.stack(sums), masks=masks,
+                         secs=secs, reduces=reduces))
+    # Every step's replicated checksums, gathered in rank order.
+    both = gather_rows(runs[0]["sums"][None]).cpu()
+    res = dict(losses=runs[0]["losses"], secs=runs[0]["secs"],
+               reduces=runs[0]["reduces"], masks=runs[0]["masks"],
+               replicas_equal=bool(all(torch.equal(both[0], x)
+                                       for x in both[1:])),
+               rerun_equal=(runs[0]["losses"] == runs[1]["losses"] and bool(
+                   torch.equal(runs[0]["sums"], runs[1]["sums"]))))
+    weights = {k: v.clone() for k, v in tr.model_state_dict().items()}
+    eval_batch = dict(batches[TP_BF16_STEPS])
+    tr.model.eval()
+    with torch.inference_mode():
+        rows = dict(eval_batch)
+        rows.update(tr.model.conv_rows(rows["src_idx"]))
+        logits = tr.model(to_device(rows, device))["logits"]
+    preds = tr.eval_step(eval_batch)["pred_idx"]
+    if rank == 0:
+        alone = MeshGroups(make_mesh({"data": 1}, world_size=1))
+        ref = Trainer(cfg, reference, device=device, seed=SEED, mesh=alone,
+                      use_kernels=False)
+        want_losses, ref_secs = [], []
+        for i, b in enumerate(batches[:TP_BF16_STEPS]):
+            sync(device)
+            t = time.perf_counter()
+            if i == 0:
+                with recorded_masks() as want_masks:
+                    want_losses.append(float(ref.train_step(b)))
+            else:
+                want_losses.append(float(ref.train_step(b)))
+            ref_secs.append(time.perf_counter() - t)
+        lr = ref.schedule(0)
+        weight_rel, weight_name, flips = rel_errors(
+            weights, ref.model.state_dict(), rel=TRAIN_REL["bfloat16"],
+            slack=2 * lr * TP_BF16_STEPS)
+        ref.model.eval()
+        with torch.inference_mode():
+            want_logits = ref.model(to_device(rows, device))["logits"]
+        want_preds = ref.eval_step(eval_batch)["pred_idx"]
+        res.update(want_losses=want_losses, ref_secs=ref_secs,
+                   want_masks=want_masks, weight_rel=weight_rel,
+                   weight_name=weight_name, flips=flips,
+                   loss_rel=max(abs(a - b) / abs(b) for a, b in
+                                zip(res["losses"], want_losses)))
+        valid = torch.as_tensor(np.asarray(eval_batch["masks"]),
+                                device=device).bool()
+        res["logit_diff"] = (logits.float() - want_logits.float()).abs()[
+            valid].max().item()
+        top2 = want_logits.float().topk(2, dim=-1).values
+        clear = (valid & (top2[..., 0] - top2[..., 1] > LOGIT_TOL)).cpu()
+        same = torch.as_tensor(preds == want_preds)
+        res["eval_clear"] = int(clear.sum())
+        res["eval_agree"] = same[clear].float().mean().item()
+        res["eval_agree_all"] = same[valid.cpu()].float().mean().item()
+        del ref
+    return res
+
+
+def tp_rank(rank, world, work, device_type="cuda"):
+    """One rank of phase 16a-16d on the one card (gloo, the library API;
+    ``device_type`` "cpu" rehearses it on the CPU): at world 2
+    data=1,model=2 (16a with 16d, then 16b), at world 4 data=2,model=2
+    (16c). Writes ``work/rank{rank}.json``."""
+    import torch
+
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.device import resolve_device
+    from realise_tpu_torch.ops.kernels import bert_block as bb
+    from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.parallel.distributed import initialize, shutdown
+    from realise_tpu_torch.parallel.mesh import make_mesh
+
+    os.environ["LOCAL_RANK"] = "0"  # every rank on card 0
+    initialize(f"file://{work}/store", world, rank, backend="gloo",
+               device=device_type)
+    wrappers = (bb.attention_block, bb.ffn_block) + tuple(tbt.KERNEL_WRAPPERS)
+    for fn in wrappers:
+        fn.launches = 0
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        device = resolve_device(None if device_type == "cuda" else device_type)
+        f32 = config_for(ARCH3, vocab_size=21128, dtype="float32",
+                         hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0)
+        if world == 2:
+            mesh = make_mesh({"data": 1, "model": 2})
+            batches = train_batches(f32, 2, TP_ROWS, SEED + 32)
+            out["16a"] = tp_step_check(mesh, rank, f32, batches[0], device,
+                                       second=batches[1], work=work)
+            bf16 = config_for(ARCH3, vocab_size=21128, dtype="bfloat16")
+            out["16b"] = tp_bf16(mesh, rank, bf16, train_batches(
+                bf16, TP_BF16_STEPS + 1, TP_ROWS, SEED + 33), device)
+        else:
+            mesh = make_mesh({"data": 2, "model": 2})
+            batch = train_batches(f32, 1, TP_DP_ROWS * 2, SEED + 34,
+                                  seq_len=64)[0]
+            out["16c"] = tp_step_check(mesh, rank, f32, batch, device)
+        out["launches"] = {fn.__name__: fn.launches for fn in wrappers}
+        out["seconds"] = time.perf_counter() - t0
+        if device.type == "cuda":
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        shutdown()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def tp_scaling(card, root, data_flags, cards, dp_rates):
+    """Phase 16e: ``torchrun --nproc_per_node N`` of ``cli/train
+    --distributed --mesh data=N/2,model=2`` at 64 rows a data rank on NCCL
+    for N = 2 and 4 (up to the count), 4 steps: every rank's loss trace
+    equal within a data group, no kernel launched, the step time, the
+    model group's reduces' CUDA-event ms and sentences/s beside phase 15d's
+    data-only run on the same cards."""
+    import statistics as st
+
+    steps = 4
+    env = {k: v for k, v in os.environ.items() if k not in DP_ENV}
+    for n in cards:
+        mesh = f"data={n // 2},model=2"
+        work = os.path.join(root, f"tp_cards{n}")
+        os.makedirs(work)
+        argv = data_flags + [
+            "--distributed", "--mesh", mesh,
+            "--per_device_train_batch_size", "64", "--max_steps", str(steps),
+            "--save_steps", "100000", "--do_train", "--output_dir",
+            os.path.join(work, "out")]
+        t = time.perf_counter()
+        run_processes([[sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", f"--nproc_per_node={n}",
+                        os.path.abspath(__file__), "dp-cli-rank", work] + argv],
+                      f"tensor parallel: torchrun {n} cards", env=env)
+        wall = time.perf_counter() - t
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        traces = [[s["loss"] for s in rk["steps"]] for rk in ranks]
+        if any(tr != traces[0] for tr in traces) or len(traces[0]) != steps:
+            fail(f"tensor parallel: {n} cards ({mesh}): loss traces {traces}")
+        if any(s["launches"] != [0] * 4 for rk in ranks for s in rk["steps"]):
+            fail(f"tensor parallel: {n} cards: a train kernel launched")
+        secs = [max(rk["steps"][i]["seconds"] for rk in ranks)
+                for i in range(1, steps)]
+        sent = [sum(rk["steps"][i]["rows"] for rk in ranks[::2])
+                for i in range(1, steps)]
+        model_ms = [st.median(rk["steps"][i]["model_reduce_ms"]
+                              for i in range(1, steps)) for rk in ranks]
+        rate = sum(sent) / sum(secs)
+        dp = dp_rates.get(n)
+        log(f"tensor parallel 16e: {n} cards, {mesh}, torchrun {wall:.1f} s: "
+            f"losses {traces[0]} (every rank's); median step {1e3 * st.median(secs):.3f} ms; "
+            f"model reduces a step (CUDA events, each rank's median) "
+            f"{[round(x, 3) for x in model_ms]} ms; {rate:.1f} sentences/s "
+            f"over {steps - 1} steps"
+            + (f" (15d data={n}: {dp:.1f})" if dp else "") + f" [{card}]")
+
+
+def tensor_parallel(device, card, dp_rates):
+    """Phase 16: tensor parallelism on the card. Returns the kernels'
+    launches on its path (none: a model axis runs the plain path)."""
+    import torch
+
+    started = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        for world, label in ((2, "data=1,model=2"), (4, "data=2,model=2")):
+            torch.cuda.empty_cache()
+            work = os.path.join(root, f"ranks{world}")
+            os.makedirs(work)
+            t = time.perf_counter()
+            run_processes([[sys.executable, os.path.abspath(__file__),
+                            "tp-rank", str(r), str(world), work, device.type]
+                           for r in range(world)],
+                          f"tensor parallel: {world} ranks on one card")
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(work, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+            log(f"tensor parallel: {world} ranks ({label}) "
+                f"{time.perf_counter() - t:.1f} s, each rank's seconds "
+                f"{[round(rk['seconds'], 1) for rk in ranks]}, peak GiB "
+                f"{[round(rk.get('peak_gib', 0), 2) for rk in ranks]} [{card}]")
+            for rk in ranks:
+                for name, n in rk["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
+            for key in ("16a", "16c"):
+                if key in ranks[0]:
+                    tp_step_report(key, label, ranks[0][key])
+            if "16b" in ranks[0]:
+                tp_bf16_report(label, [rk["16b"] for rk in ranks], card)
+        if any(launches.values()):
+            fail(f"tensor parallel: kernels launched under a model axis: "
+                 f"{launches}")
+        count = torch.cuda.device_count()
+        if count >= 2:
+            tp_scaling(card, root, dp_corpus(root, 1024, 64),
+                       [n for n in (2, 4) if n <= count], dp_rates)
+        else:
+            log("tensor parallel 16e: skipped, one card (the multi-card "
+                "torchrun runs need two or more)")
+    log(f"tensor parallel: launches {launches}; phase "
+        f"{time.perf_counter() - started:.1f} s [{card}]")
     return launches
+
+
+def tp_step_report(key, label, r):
+    rows = TP_ROWS if key == "16a" else f"2 x {TP_DP_ROWS}"
+    conv_tol = PATH_GRAD_REL
+    log(f"tensor parallel {key}: {label} against one process on {rows} rows, "
+        f"f32 dropout 0: loss {r['loss']:.6f} / {r['want_loss']:.6f} "
+        f"(relative {r['loss_rel']:.2e}, tol {TP_LOSS_REL}); clip norm "
+        f"{r['norm']:.6f} / {r['want_norm']:.6f} (relative "
+        f"{r['norm_rel']:.2e}, tol {TP_LOSS_REL}); worst gradient "
+        f"{r['grad_name']} relative {r['grad_rel']:.2e} (tol {TP_REL}), of the "
+        f"glyph stream {r['conv_name']} {r['conv_rel']:.2e} (tol {conv_tol}); "
+        f"worst weight {r['weight_name']} {r['weight_lr']:.3f} lr (tol 2), "
+        f"{r['flips']:.2e} of the weights beyond {TP_NEAR} lr (tol "
+        f"{TP_FLIP_SHARE}); BN running statistics {r['bn']:.2e} (tol "
+        f"{FACTOR_BN_TOL})")
+    if (r["loss_rel"] > TP_LOSS_REL or r["norm_rel"] > TP_LOSS_REL
+            or r["grad_rel"] > TP_REL or r["conv_rel"] > conv_tol
+            or not weights_agree((r["weight_lr"], None, r["flips"]))
+            or r["bn"] > FACTOR_BN_TOL):
+        fail(f"tensor parallel {key}: the mesh disagrees with one process")
+    if "16d" in r:
+        d = r["16d"]
+        log(f"tensor parallel 16d: the data=1,model=2 checkpoint in one "
+            f"process, next step: loss {d['one_process']:.6f} against the "
+            f"mesh's {d['loss']:.6f} (relative {d['loss_rel']:.2e}); worst "
+            f"weight {d['weight_name']} {d['weight_lr']:.3f} lr (tol 2), "
+            f"{d['flips']:.2e} of the weights beyond {TP_NEAR} lr (tol "
+            f"{TP_FLIP_SHARE})")
+        if (d["loss_rel"] > TP_LOSS_REL
+                or not weights_agree((d["weight_lr"], None, d["flips"]))):
+            fail("tensor parallel 16d: the checkpoint's next step disagrees")
+
+
+def tp_bf16_report(label, ranks, card):
+    b = ranks[0]
+    keys = [m[0] for m in b["masks"]] == [m[0] for m in b["want_masks"]]
+    model_ranks = len(ranks)
+    kept = mask_agreement([rk["masks"] for rk in ranks], b["want_masks"],
+                          len(ranks))
+    n_red, n_bytes, red_ms = zip(*b["reduces"])
+    log(f"tensor parallel 16b: {label}, bf16 dropout {TRAIN_RATE}, "
+        f"{TP_BF16_STEPS} steps of {TP_ROWS} rows at S=128: losses "
+        f"{b['losses']} / one process {b['want_losses']} (worst relative "
+        f"{b['loss_rel']:.2e}); {len(b['masks'])} dropout calls of the first "
+        f"step, keys equal {keys}, masks (kept count and index sum) equal "
+        f"{sum(kept)}/{len(kept)}; worst weight "
+        f"{b['weight_name']} relative {b['weight_rel']:.2e} beyond 2 lr a "
+        f"step (tol {TRAIN_REL['bfloat16']}), {b['flips']:.2e} of the weights "
+        f"beyond it; replicated weights the same bits "
+        f"{[rk['replicas_equal'] for rk in ranks]}; rerun the same bits "
+        f"{[rk['rerun_equal'] for rk in ranks]}; eval argmax agreement "
+        f"{b['eval_agree']:.4%} over the {b['eval_clear']} tokens with a "
+        f"top-2 margin above {LOGIT_TOL} ({b['eval_agree_all']:.4%} over "
+        f"all), logits max diff {b['logit_diff']:.4f} (tol {LOGIT_TOL})")
+    log(f"tensor parallel 16b: step seconds {[round(s, 4) for s in b['secs']]}"
+        f" ({model_ranks} ranks, gloo), one process plain path "
+        f"{[round(s, 4) for s in b['ref_secs']]}; model reduces a step "
+        f"{list(n_red)}, {[round(x / 2 ** 20, 1) for x in n_bytes]} MiB, "
+        f"CUDA-event ms {[round(x, 3) for x in red_ms]} [{card}]")
+    if not (keys and all(kept) and all(rk["replicas_equal"] for rk in ranks)
+            and all(rk["rerun_equal"] for rk in ranks)
+            and b["loss_rel"] <= TRAIN_REL["bfloat16"]
+            and b["weight_rel"] <= TRAIN_REL["bfloat16"]
+            and b["flips"] <= TP_FLIP_SHARE and b["logit_diff"] <= LOGIT_TOL and b["eval_clear"] > 0
+            and b["eval_agree"] >= ARGMAX_AGREE):
+        fail("tensor parallel 16b: the mesh broke its bf16 contract")
 
 
 # -------------------------------------------------------------------- main
@@ -3828,7 +4478,11 @@ def main() -> int:
     for name, n in raw_recipe(device, card).items():
         launches[name] += n
     torch.cuda.empty_cache()
-    for name, n in data_parallel(device, card).items():
+    dp_launches, dp_rates = data_parallel(device, card)
+    for name, n in dp_launches.items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    for name, n in tensor_parallel(device, card, dp_rates).items():
         launches[name] += n
 
     train_src = "realise_tpu/ops/pallas/bert_block_train.py"
@@ -3858,9 +4512,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # Phase 15's own processes: a rank of 15b-15c, a torchrun rank of 15d.
+    # Phase 15's and 16's own processes: a rank of 15b-15c, a torchrun rank
+    # of 15d and 16e, a rank of 16a-16d.
     if sys.argv[1:2] == ["dp-rank"]:
         dp_rank(int(sys.argv[2]), sys.argv[3], *sys.argv[4:5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["tp-rank"]:
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                *sys.argv[5:6])
         sys.exit(0)
     if sys.argv[1:2] == ["dp-cli-rank"]:
         sys.exit(dp_cli_rank(sys.argv[2], sys.argv[3:]))

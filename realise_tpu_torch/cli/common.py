@@ -3,9 +3,10 @@ mesh, data and evaluation (the port's own copy of ``realise_tpu.cli.common``).
 
 Flag names and meanings follow the JAX package's CLIs (which follow the
 reference's src/run.py:282-391). ``--mesh`` takes the JAX syntax
-(``data=N``); where the JAX package spreads a mesh over the devices of one
-process, the port runs one process per card under torchrun, so
-``--mesh data=N`` needs a process group of N ranks (:func:`build_mesh`).
+(``data=D,model=M``); where the JAX package spreads a mesh over the devices
+of one process, the port runs one process per card under torchrun, so
+``--mesh data=D,model=M`` needs a process group of D·M ranks
+(:func:`build_mesh`).
 """
 
 from __future__ import annotations
@@ -87,19 +88,24 @@ def add_mesh_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh", default=None,
                    help="e.g. 'data=4': data parallelism over 4 ranks, one "
                         "card each (launch with torchrun --nproc_per_node "
-                        "4); default one process")
+                        "4); 'data=2,model=2': each replica split over 2 "
+                        "ranks by tensor parallelism, 4 ranks; default one "
+                        "process")
 
 
-def build_mesh(args):
+def build_mesh(args, cfg: Optional[RealiseConfig] = None):
     """The run's mesh, or None without ``--mesh`` and ``--distributed``.
 
     ``--mesh`` is parsed as the JAX package parses it
-    (``realise_tpu/cli/common.py:200-214``). Under torchrun's environment,
-    or with ``--distributed``, the process group forms first (NCCL, gloo
-    with ``--device cpu``; ``parallel.distributed.initialize``), before
-    anything touches the card. ``--distributed`` without ``--mesh`` means
-    ``data=WORLD_SIZE``. A mesh the group cannot hold (another world size, a
-    ``model`` axis above 1) exits with the reason."""
+    (``realise_tpu/cli/common.py:200-214``) and checked: a mesh the
+    process group cannot hold (another world size than torchrun's
+    ``WORLD_SIZE``, 1 without it), or whose ``model`` axis does not divide
+    ``cfg``'s heads and intermediate size, exits with the reason. Then,
+    under torchrun's environment or with ``--distributed``, the process
+    group forms (NCCL, gloo with ``--device cpu``;
+    ``parallel.distributed.initialize``), before anything touches the
+    card. ``--distributed`` without ``--mesh`` means
+    ``data=WORLD_SIZE``."""
     from realise_tpu_torch.parallel.distributed import (
         initialize,
         launched_by_torchrun,
@@ -118,12 +124,14 @@ def build_mesh(args):
                 f"--mesh: bad axis {part!r}: expected name=count pairs like "
                 f"'data=8' or 'data=4,model=1'")
         axes[name] = int(n)
-    if distributed or launched_by_torchrun():
-        initialize(device=args.device)
+    group = distributed or launched_by_torchrun()
+    world = int(os.environ.get("WORLD_SIZE", "1")) if group else 1
     try:
-        mesh = make_mesh(axes or None)
+        mesh = make_mesh(axes or None, world_size=world, cfg=cfg)
     except ValueError as e:
         raise SystemExit(f"--mesh: {e}")
+    if group:
+        initialize(device=args.device)
     logger.info("mesh %s", mesh)
     return mesh
 
@@ -259,15 +267,15 @@ def evaluate_model(trainer, dataset: List[Dict], featurizer, tokenizer,
     current weights first (``Trainer.prepare_eval_tables``).
 
     In a process group (the JAX function's multi-process branch,
-    realise_tpu/cli/common.py:248-311) each rank featurizes its
-    ``local_slice`` of every batch for the device and the whole batch for
-    the metric; ``Trainer.eval_step`` gathers every rank's predictions, so
-    every rank computes the same metrics. Rank ``p`` > 0 writes its files
-    with a ``.p{p}`` suffix, so no two ranks write one file."""
+    realise_tpu/cli/common.py:248-311) each rank featurizes its data
+    index's ``local_slice`` of every batch for the device and the whole
+    batch for the metric; ``Trainer.eval_step`` gathers every data rank's
+    predictions, so every rank computes the same metrics. Rank ``p`` > 0
+    writes its files with a ``.p{p}`` suffix, so no two ranks write one
+    file."""
     from realise_tpu_torch.parallel.distributed import (
         is_main_process,
         local_slice,
-        process_count,
         process_index,
     )
 
@@ -298,9 +306,10 @@ def evaluate_model(trainer, dataset: List[Dict], featurizer, tokenizer,
         padded = pad_examples(examples, batch_size)
         host = featurizer.featurize(padded)
         feed, row0 = host, 0
-        if process_count() > 1:
-            feed = featurizer.featurize(local_slice(padded))
-            row0 = process_index() * feed["loss_masks"].shape[0]
+        if trainer.data_size > 1:
+            feed = featurizer.featurize(local_slice(
+                padded, trainer.data_index, trainer.data_size))
+            row0 = trainer.data_index * feed["loss_masks"].shape[0]
         out = trainer.eval_step(featurizer.device_batch(
             zero_padding_loss(feed, n, row0)))
         host["pred_idx"] = out["pred_idx"][:n]

@@ -14,7 +14,9 @@ fused kernels unless told otherwise. Under torchrun ``--mesh data=N``
 trains data parallel over N ranks, one card each, as ``cli/train
 --distributed`` does: the update batch scales by N (the JAX CLI's
 pretrain_pho.py:97-103) and each rank takes its contiguous slice of it;
-rank 0 writes the checkpoints and ``dev_results.json``.
+rank 0 writes the checkpoints and ``dev_results.json``. ``--mesh
+data=D,model=M`` splits the pho BERT's layers over M ranks of each data
+index (tensor parallelism; ``cli/train``'s rules).
 
 Example (smoke, no corpus assets):
     python -m realise_tpu_torch.cli.pretrain_pho --synthetic --tiny \
@@ -43,11 +45,7 @@ from realise_tpu_torch.cli.common import (
     zero_padding_loss,
 )
 from realise_tpu_torch.data.dataset import batch_iterator, pad_examples
-from realise_tpu_torch.parallel.distributed import (
-    is_main_process,
-    local_slice,
-    process_index,
-)
+from realise_tpu_torch.parallel.distributed import is_main_process, local_slice
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -80,11 +78,11 @@ def token_accuracy(trainer, data, featurizer, batch_size: int = 64):
         n = len(examples)
         padded = pad_examples(examples, batch_size)
         host = featurizer.featurize_pho_pretrain(padded)
-        rows = local_slice(padded)
+        rows = local_slice(padded, trainer.data_index, trainer.data_size)
         feed = (host if len(rows) == len(padded)
                 else featurizer.featurize_pho_pretrain(rows))
         out = trainer.eval_step(featurizer.device_batch(
-            zero_padding_loss(feed, n, process_index() * len(rows))))
+            zero_padding_loss(feed, n, trainer.data_index * len(rows))))
         mask = host["loss_masks"][:n].astype(bool)
         correct += int((out["pred_idx"][:n][mask]
                         == host["tgt_idx"][:n][mask]).sum())
@@ -101,7 +99,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.model_type = "pho2-pretrain"
     setup_logging()
-    mesh = build_mesh(args)  # forms the process group before the card
+    tokenizer = build_tokenizer(args)
+    cfg = build_config(args, len(tokenizer))
+    mesh = build_mesh(args, cfg)  # forms the process group before the card
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import RealisePretrain
@@ -109,8 +109,6 @@ def main(argv=None) -> int:
     from realise_tpu_torch.training.trainer import Trainer
 
     device = resolve_device(args.device)  # raises without CUDA by default
-    tokenizer = build_tokenizer(args)
-    cfg = build_config(args, len(tokenizer))
     featurizer = Featurizer(tokenizer, cfg)
     model = RealisePretrain(cfg,
                             generator=torch.Generator().manual_seed(args.seed))
@@ -125,7 +123,7 @@ def main(argv=None) -> int:
         warmup_steps=args.warmup_steps, total_steps=max(args.max_steps, 1),
         grad_accum_steps=args.gradient_accumulation_steps,
         use_kernels=False if args.no_kernels else None, seed=args.seed,
-        device=device)
+        device=device, mesh=mesh)
 
     train_data = load_dataset(args, tokenizer, args.train_file,
                               num_synthetic=256, seed=args.seed)
@@ -137,16 +135,17 @@ def main(argv=None) -> int:
                                            shuffle=True,
                                            seed=args.seed + epoch,
                                            pad_final=False):
-                rows = local_slice(pad_examples(examples, batch_size))
+                rows = local_slice(pad_examples(examples, batch_size),
+                                   trainer.data_index, trainer.data_size)
                 feed = featurizer.featurize_pho_pretrain(rows)
                 yield featurizer.device_batch(zero_padding_loss(
-                    feed, len(examples), process_index() * len(rows)))
+                    feed, len(examples), trainer.data_index * len(rows)))
             epoch += 1
 
     training_args = dict(vars(args))
 
     def save_fn(step, tr):
-        path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
+        path = save_checkpoint(args.output_dir, step, tr.model_state_dict(),
                                cfg, trainer_state=tr.state_dict(),
                                training_args=training_args)
         if is_main_process():

@@ -14,7 +14,9 @@ torchrun ``--mesh data=N`` trains data parallel over N ranks, one card
 each: the batch scales by N, at most the number of chars and a multiple of
 N (the JAX CLI's pretrain_res.py:66-79), and each rank takes its
 contiguous slice of it; rank 0 writes the checkpoints and
-``dev_results.json``.
+``dev_results.json``. Nothing of the stage is split by tensor parallelism
+(it has no encoder), so under ``--mesh data=D,model=M`` the M ranks of a
+data index train copies and the run is the ``data=D`` one.
 
 Example (smoke):
     python -m realise_tpu_torch.cli.pretrain_res --synthetic --tiny \
@@ -70,8 +72,8 @@ def char_accuracy(trainer, char_ids: np.ndarray, batch_size: int) -> float:
         if n < batch_size:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:],
                                                      batch_size - n)])
-        preds = trainer.eval_step(
-            {"char_idx": np.asarray(local_slice(chunk))})["pred_idx"]
+        preds = trainer.eval_step({"char_idx": np.asarray(local_slice(
+            chunk, trainer.data_index, trainer.data_size))})["pred_idx"]
         correct += int((preds[:n] == chunk[:n]).sum())
     return correct / max(len(char_ids), 1)
 
@@ -80,7 +82,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.model_type = "res-pretrain"
     setup_logging()
-    mesh = build_mesh(args)  # forms the process group before the card
+    tokenizer = build_tokenizer(args)
+    cfg = build_config(args, len(tokenizer))
+    mesh = build_mesh(args, cfg)  # forms the process group before the card
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import RealisePretrain
@@ -88,8 +92,6 @@ def main(argv=None) -> int:
     from realise_tpu_torch.training.trainer import Trainer
 
     device = resolve_device(args.device)  # raises without CUDA by default
-    tokenizer = build_tokenizer(args)
-    cfg = build_config(args, len(tokenizer))
     featurizer = Featurizer(tokenizer, cfg)
     model = RealisePretrain(cfg,
                             generator=torch.Generator().manual_seed(args.seed))
@@ -112,7 +114,7 @@ def main(argv=None) -> int:
     trainer = Trainer(cfg, model, learning_rate=args.learning_rate,
                       warmup_steps=0, total_steps=max(total, 1),
                       use_kernels=False if args.no_kernels else None,
-                      seed=args.seed, device=device)
+                      seed=args.seed, device=device, mesh=mesh)
 
     rng = np.random.default_rng(args.seed)
 
@@ -121,12 +123,13 @@ def main(argv=None) -> int:
             order = rng.permutation(len(char_ids))
             for i in range(0, len(order) - batch_size + 1, batch_size):
                 yield {"char_idx": np.asarray(local_slice(
-                    char_ids[order[i:i + batch_size]]))}
+                    char_ids[order[i:i + batch_size]], trainer.data_index,
+                    trainer.data_size))}
 
     training_args = dict(vars(args))
 
     def save_fn(step, tr):
-        path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
+        path = save_checkpoint(args.output_dir, step, tr.model_state_dict(),
                                cfg, trainer_state=tr.state_dict(),
                                training_args=training_args)
         if is_main_process():

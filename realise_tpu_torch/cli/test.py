@@ -10,6 +10,8 @@ checkpoint is converted first (README, "PyTorch/CUDA port"). Under torchrun
 ``--mesh data=N`` scores data parallel over N ranks, one card each: every
 rank forwards its slice of each batch and computes the same metrics from
 the gathered predictions; rank 0 writes ``test_results.json``.
+``--mesh data=D,model=M`` splits each replica's encoder layers over M ranks
+(tensor parallelism, the plain sub-blocks), D·M ranks in all.
 
 Example:
     python -m realise_tpu_torch.cli.test --ckpt_dir /tmp/out --synthetic \
@@ -18,6 +20,8 @@ Example:
         --testset_year 13 --ckpt_num -1
     torchrun --nproc_per_node 2 -m realise_tpu_torch.cli.test \
         --ckpt_dir ckpts --data_dir data --mesh data=2
+    torchrun --nproc_per_node 4 -m realise_tpu_torch.cli.test \
+        --ckpt_dir ckpts --data_dir data --mesh data=2,model=2
 """
 
 from __future__ import annotations
@@ -86,10 +90,22 @@ def select_checkpoint(ckpt_dir: str, ckpt_num: int):
     return -1, ckpt_dir
 
 
+def checkpoint_config(args):
+    """The config of the checkpoint ``--ckpt_dir``/``--ckpt_num`` select,
+    None when there is none yet (:func:`select_checkpoint` then says why)."""
+    from realise_tpu_torch.training.checkpoint import load_config
+
+    try:
+        return load_config(select_checkpoint(args.ckpt_dir, args.ckpt_num)[1])
+    except (SystemExit, OSError):
+        return None
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging()
-    build_mesh(args)  # forms the process group before the card
+    # Forms the process group before the card.
+    mesh = build_mesh(args, checkpoint_config(args))
     from realise_tpu_torch.data.features import Featurizer
     from realise_tpu_torch.device import resolve_device
     from realise_tpu_torch.models.realise import Realise
@@ -111,7 +127,7 @@ def main(argv=None) -> int:
     model.load_state_dict(load_checkpoint(ckpt_path), assign=True)
     model.install_pho_vocab_tables(*featurizer.pho2_tables())
     trainer = Trainer(cfg, model, use_kernels=False if args.no_kernels else None,
-                      device=device)
+                      device=device, mesh=mesh)
 
     test_file = args.test_file or f"test.sighan{args.testset_year}.pkl"
     label_file = args.label_file or f"test.sighan{args.testset_year}.lbl.tsv"

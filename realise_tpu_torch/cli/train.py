@@ -35,7 +35,11 @@ rank iterates the same global batch order, featurizes its contiguous slice
 and runs the whole model on it, and the Trainer all-reduces the step's sums
 (the JAX CLI's ``--distributed``, realise_tpu/cli/train.py:182-296). Only
 rank 0 writes checkpoints and result files; every rank scores, resumes and
-fast-forwards alike.
+fast-forwards alike. ``--mesh data=D,model=M`` (D·M ranks) adds tensor
+parallelism: the ranks of one data index split each encoder layer
+(``parallel/tensor.py``) and feed the same slice, the batch is
+``per_device_train_batch_size × D × gradient_accumulation_steps``, and a
+checkpoint holds the full weights, gathered before rank 0 writes them.
 
 Example (smoke, no corpus assets):
     python -m realise_tpu_torch.cli.train --synthetic --tiny --max_steps 2 \
@@ -43,6 +47,9 @@ Example (smoke, no corpus assets):
     torchrun --nproc_per_node 4 -m realise_tpu_torch.cli.train \
         --distributed --mesh data=4 --synthetic --max_steps 8 \
         --output_dir /tmp/dp
+    torchrun --nproc_per_node 4 -m realise_tpu_torch.cli.train \
+        --distributed --mesh data=2,model=2 --synthetic --max_steps 8 \
+        --output_dir /tmp/tp
 """
 
 from __future__ import annotations
@@ -138,7 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     setup_logging()
-    mesh = build_mesh(args)  # forms the process group before the card
+    tokenizer = build_tokenizer(args)
+    cfg = build_config(args, len(tokenizer))
+    mesh = build_mesh(args, cfg)  # forms the process group before the card
     from realise_tpu_torch.data.dataset import (
         batch_iterator,
         bucketed_batch_iterator,
@@ -152,7 +161,6 @@ def main(argv=None) -> int:
         barrier,
         is_main_process,
         local_slice,
-        process_index,
     )
     from realise_tpu_torch.training.merge import merge_state_dicts
     from realise_tpu_torch.training.checkpoint import (
@@ -167,8 +175,6 @@ def main(argv=None) -> int:
     if not (args.do_train or args.do_eval or args.do_predict):
         args.do_train = True
     device = resolve_device(args.device)  # raises without CUDA by default
-    tokenizer = build_tokenizer(args)
-    cfg = build_config(args, len(tokenizer))
     featurizer = Featurizer(tokenizer, cfg)
     model = Realise(cfg, generator=torch.Generator().manual_seed(args.seed))
     model.install_glyphs(build_glyphs(args, tokenizer, cfg))
@@ -221,7 +227,7 @@ def main(argv=None) -> int:
         max_grad_norm=args.max_grad_norm,
         grad_accum_steps=args.gradient_accumulation_steps,
         use_kernels=False if args.no_kernels else None, seed=args.seed,
-        device=device)
+        device=device, mesh=mesh)
 
     if args.resume:
         ckpts = list_checkpoints(args.output_dir)
@@ -246,11 +252,12 @@ def main(argv=None) -> int:
                     continue
                 # Pad a short batch here (fixed shapes) and zero the padded
                 # rows' loss; a bucket's batch takes the bucket's length.
-                # Each rank featurizes its contiguous slice only.
-                rows = local_slice(pad_examples(examples, batch_size))
+                # Each rank featurizes its data index's contiguous slice.
+                rows = local_slice(pad_examples(examples, batch_size),
+                                   trainer.data_index, trainer.data_size)
                 feed = featurizer.featurize(rows, seq_len=seq_len)
                 feed = zero_padding_loss(feed, len(examples),
-                                         process_index() * len(rows))
+                                         trainer.data_index * len(rows))
                 yield featurizer.device_batch(feed)
             skip = 0
             epoch += 1
@@ -258,7 +265,7 @@ def main(argv=None) -> int:
     training_args = dict(vars(args))
 
     def save_fn(step, tr):
-        path = save_checkpoint(args.output_dir, step, tr.model.state_dict(),
+        path = save_checkpoint(args.output_dir, step, tr.model_state_dict(),
                                cfg, trainer_state=tr.state_dict(),
                                training_args=training_args)
         if is_main_process():

@@ -19,7 +19,7 @@ alone; the pinyin pretraining's come from :meth:`Featurizer.
 featurize_pho_pretrain`. The pinyin features are a gather of the vocab tables
 on ``src_idx`` after either featurizer. :func:`to_device` turns the device
 part into int64 tensors, the conv stream's distinct rows of a call
-(``res_rows``, ``res_inverse``, ``Realise.conv_rows``) too. Raw sentences
+(``res_rows``, ``res_inverse``, ``res_counts``, ``Realise.conv_rows``) too. Raw sentences
 are tokenized by the Python tokenizer or, given a
 ``data.native.NativeFeaturizer``, by the C++ one
 (``Featurizer.featurize_raw``); both give the same arrays.
@@ -37,7 +37,8 @@ from realise_tpu_torch.text.pinyin import Pinyin1Convertor, Pinyin2Convertor
 from realise_tpu_torch.text.tokenizer import WordPieceTokenizer, is_chinese_char
 
 DEVICE_KEYS = ("src_idx", "tgt_idx", "masks", "loss_masks", "pho_idx",
-               "pho_lens", "pho1_idx", "char_idx", "res_rows", "res_inverse")
+               "pho_lens", "pho1_idx", "char_idx", "res_rows", "res_inverse",
+               "res_counts")
 
 
 def make_example(sid: str, src: str, tgt: str, tokenizer: WordPieceTokenizer) -> Dict:

@@ -56,7 +56,7 @@ function and gradients:
   rows (the dedup of :meth:`Realise.install_glyphs`: non-CJK tokens share
   the zero image) when the call has more token slots than rows, or over the
   call's own distinct rows when the batch carries them
-  (``res_rows``/``res_inverse``, counted on the host by
+  (``res_rows``/``res_inverse``/``res_counts``, counted on the host by
   :meth:`Realise.conv_rows`), with the BatchNorm statistics weighted by each
   row's occurrence count.
 
@@ -70,6 +70,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from realise_tpu_torch.config import (
@@ -232,7 +233,13 @@ class _TokenStreams(nn.Module):
     'gru' (the pho2 GRU or the pho1 lookups), 'pho_bert', 'fusion+output',
     'head+ce'; the Trainer adds 'backward' and 'clip+adamw'); the default
     brackets nothing, a caller that times the parts sets its own
-    context-manager factory."""
+    context-manager factory.
+
+    ``tp``: the rank's ``MeshGroups`` once ``parallel/tensor.shard_module``
+    split the model over a ``model`` axis (its dropout then indexes the
+    global batch)."""
+
+    tp = None
 
     def _finish_init(self, generator: Optional[torch.Generator]) -> None:
         """The glyph tensor, the derived tables' buffers and the seeded
@@ -348,29 +355,43 @@ class _TokenStreams(nn.Module):
             return self.res_uniq_first.shape[0]
         return self.char_images_multifonts.shape[0]
 
-    def conv_rows(self, src_idx) -> Dict[str, np.ndarray]:
+    def conv_rows(self, src_idx, group=None) -> Dict[str, np.ndarray]:
         """The distinct conv-table rows of one forward call's (B, S) host
         ids: {'res_rows': (R,) sorted rows, 'res_inverse': (B, S) positions
-        in them}; {} for a model without a glyph stream. Counted with numpy
-        before the batch goes to the device, so the forward needs no
-        ``torch.unique`` (a host sync mid-step).
+        in them, 'res_counts': (R,) each row's occurrences}; {} for a model
+        without a glyph stream. Counted with numpy before the batch goes to
+        the device, so the forward needs no ``torch.unique`` (a host sync
+        mid-step); training-mode BatchNorm weighs each row by its count.
 
         The U distinct rows are padded to R = :func:`row_bucket` (U) by
-        repeating the last one; no token points at a pad, so it weighs 0 in
-        BatchNorm and gets no gradient. Every new row count is a new set of
-        convolution shapes, for which cuDNN builds its execution plans on
-        the host; with a count of its own for each batch that took more time
-        than the convolutions (PERF.md §6), with the buckets the counts
-        repeat from batch to batch."""
+        repeating the last one; a pad counts 0 and no token points at it,
+        so it weighs 0 in BatchNorm and gets no gradient. Every new row
+        count is a new set of convolution shapes, for which cuDNN builds
+        its execution plans on the host; with a count of its own for each
+        batch that took more time than the convolutions (PERF.md §6), with
+        the buckets the counts repeat from batch to batch.
+
+        ``group``: a process group whose ranks each hold a part of one
+        batch (the data ranks of a tensor-parallel step). The counts are
+        then all-reduced over it, and the rows are those of the whole
+        batch, the same on every rank, with this rank's tokens' positions
+        in them: each rank runs the conv of one process over the whole
+        batch, BatchNorm statistics included."""
         if not self.cfg.with_res:
             return {}
         ids = np.asarray(src_idx, np.int64)
         if self._res_inverse_host is not None:
             ids = self._res_inverse_host[ids]
-        rows, inverse = np.unique(ids, return_inverse=True)
-        rows = np.pad(rows, (0, row_bucket(rows.shape[0]) - rows.shape[0]),
-                      mode="edge")
-        return {"res_rows": rows, "res_inverse": inverse.reshape(ids.shape)}
+        counts = np.bincount(ids.ravel(), minlength=self.res_conv_rows)
+        if group is not None:
+            total = torch.as_tensor(counts, device=self.device)
+            dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+            counts = total.cpu().numpy()
+        rows = np.nonzero(counts)[0]
+        pad = row_bucket(rows.shape[0]) - rows.shape[0]
+        return {"res_rows": np.pad(rows, (0, pad), mode="edge"),
+                "res_inverse": np.searchsorted(rows, ids),
+                "res_counts": np.pad(counts[rows], (0, pad))}
 
     @property
     def dtype(self) -> torch.dtype:
@@ -403,29 +424,37 @@ class _TokenStreams(nn.Module):
 
     def _factorized_conv(self, src_idx: torch.Tensor,
                          rows: Optional[torch.Tensor] = None,
-                         inverse: Optional[torch.Tensor] = None
+                         inverse: Optional[torch.Tensor] = None,
+                         counts: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
         """The CharResNet over distinct glyph rows, gathered per token
         (``_factorized_conv`` of the JAX package): the call's own rows
-        (``rows`` (U,) of the conv table and each token's position
-        ``inverse`` in them) or, without them, every row of the table. In
-        training mode BatchNorm weighs each row by its occurrence count, the
-        statistics of the per-token batch (rows absent from the call count
-        0); float32 sums of ones are exact up to 2²⁴, so the counts are the
-        same bits whatever order ``index_add_`` adds in."""
+        (:meth:`conv_rows`: ``rows`` (U,) of the conv table, each token's
+        position ``inverse`` in them and each row's occurrence ``counts``)
+        or, without them, every row of the table. In training mode
+        BatchNorm weighs each row by its occurrence count, the statistics
+        of the per-token batch (rows absent from the call count 0); over
+        the whole table the counts are summed in the graph, and float32
+        sums of ones are exact up to 2²⁴, so they are the same bits
+        whatever order ``index_add_`` adds in."""
+        weights = None
         if rows is None:
             inverse = (src_idx if self.res_uniq_inverse is None
                        else self.res_uniq_inverse[src_idx])
             first = self.res_uniq_first
+            images = (self.char_images_multifonts if first is None
+                      else self.char_images_multifonts[first])
+            if self.training:
+                flat = inverse.reshape(-1)
+                weights = torch.zeros(images.shape[0],
+                                      device=flat.device).index_add_(
+                    0, flat, torch.ones(flat.shape, device=flat.device))
         else:
-            first = rows if self.res_uniq_first is None else self.res_uniq_first[rows]
-        images = (self.char_images_multifonts if first is None
-                  else self.char_images_multifonts[first])
-        weights = None
-        if self.training:
-            flat = inverse.reshape(-1)
-            weights = torch.zeros(images.shape[0], device=flat.device).index_add_(
-                0, flat, torch.ones(flat.shape, device=flat.device))
+            first = (rows if self.res_uniq_first is None
+                     else self.res_uniq_first[rows])
+            images = self.char_images_multifonts[first]
+            if self.training:
+                weights = counts.float()
         feats = self.resnet(images.to(self.dtype), weights)
         return table_gather(feats, inverse)
 
@@ -439,7 +468,8 @@ class _TokenStreams(nn.Module):
             return tables["res"].to(self.dtype)[src_idx]
         if rows is not None or (not per_token and b * s > self.res_conv_rows):
             return self._factorized_conv(src_idx, rows,
-                                         batch.get("res_inverse"))
+                                         batch.get("res_inverse"),
+                                         batch.get("res_counts"))
         return self.res_features(src_idx.reshape(-1)).reshape(b, s, -1)
 
     def _pho_inputs(self, batch, tables, per_token) -> torch.Tensor:
@@ -589,7 +619,9 @@ class Realise(_TokenStreams):
                                            generator=generator)
             if self.training and generator is not None:
                 hidden = dropout(hidden, cfg.hidden_dropout_prob,
-                                 random_key(generator))
+                                 random_key(generator),
+                                 None if self.tp is None
+                                 else self.tp.rows(hidden))
 
         with span("head+ce"):
             if cfg.head == "mlm":

@@ -19,6 +19,22 @@ reference's sites (attention probabilities, attention output, FFN output),
 one key per site. The embedding output is dropped in training mode too. The
 pooler is not ported. ``BertLayer`` and ``BertModel`` start in eval mode,
 the deterministic forward; ``.train()`` turns the training forward on.
+
+Tensor parallelism (``parallel/tensor.shard_module`` sets ``tp``, the
+rank's ``MeshGroups``, on every stack and layer): a layer holds its rank's
+column slices of q/k/v and of the FFN's first product and its row slices of
+the attention output and of the FFN's second product, and runs the plain
+sub-blocks in eval and in training mode, never the kernels, which need the
+whole hidden dim (the JAX Trainer's rule, trainer.py:288-304). Its local
+head count is read from the query weight's rows. :func:`copy_to_model`
+goes before the column-parallel products; the row-parallel partial
+products are float32, summed over the model group by
+:func:`reduce_from_model` and rounded to the activation dtype once, and the
+bias, the dropout, the residual and the LayerNorm follow on the full
+hidden state (:func:`row_parallel_dense`). Every dropout site indexes its
+mask by the element's place in the global array: the rows at the rank's
+data offset, the attention probabilities at its head offset too
+(``ops/layers.dropout``'s layout), so the masks are the one-process step's.
 """
 
 from __future__ import annotations
@@ -39,6 +55,7 @@ from realise_tpu_torch.ops.layers import (
     random_key,
     stream_value,
 )
+from realise_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
 
 KeyPair = Tuple[int, int]
 
@@ -115,45 +132,75 @@ class BertIntermediate(nn.Module):
         self.dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
 
 
+def row_parallel_dense(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor, tp=None) -> torch.Tensor:
+    """:func:`dense` of a row-parallel product: with ``tp`` the rank's
+    partial product of its input columns in float32, summed over the model
+    group, rounded to x's dtype once, then the (replicated) bias added once
+    in that dtype; without, :func:`dense`."""
+    if tp is None:
+        return dense(x, weight, bias)
+    partial = torch.matmul(x.float(), weight.float().t())
+    return (reduce_from_model(partial, tp.model_group).to(x.dtype)
+            + bias.to(x.dtype))
+
+
+def _layout(tp, x: torch.Tensor, heads: bool = False):
+    """The dropout layout of ``x`` on this rank (None without ``tp``)."""
+    if tp is None:
+        return None
+    return tp.heads(x) if heads else tp.rows(x)
+
+
 def _self_attention(att: BertAttention, hidden: torch.Tensor,
                     attn_bias: torch.Tensor, cfg: RealiseConfig,
-                    keys: Optional[Tuple[KeyPair, KeyPair]] = None
-                    ) -> torch.Tensor:
-    """``keys``: dropout keys of the probabilities and of the output."""
-    b, s, h = hidden.shape
-    nh, hd = cfg.num_attention_heads, cfg.head_dim
+                    keys: Optional[Tuple[KeyPair, KeyPair]] = None,
+                    tp=None) -> torch.Tensor:
+    """``keys``: dropout keys of the probabilities and of the output.
+    ``tp``: the rank's ``MeshGroups`` of a sharded layer (its heads only)."""
+    b, s, _ = hidden.shape
+    hd = cfg.head_dim
     sa = att.self
-    q = dense(hidden, sa.query.weight, sa.query.bias).reshape(b, s, nh, hd)
-    k = dense(hidden, sa.key.weight, sa.key.bias).reshape(b, s, nh, hd)
-    v = dense(hidden, sa.value.weight, sa.value.bias).reshape(b, s, nh, hd)
+    nh = sa.query.weight.shape[0] // hd  # this rank's heads
+    x = hidden if tp is None else copy_to_model(hidden, tp.model_group)
+    q = dense(x, sa.query.weight, sa.query.bias).reshape(b, s, nh, hd)
+    k = dense(x, sa.key.weight, sa.key.bias).reshape(b, s, nh, hd)
+    v = dense(x, sa.value.weight, sa.value.bias).reshape(b, s, nh, hd)
     # (B, H, S, S) scores in float32 for a stable softmax.
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     probs = torch.softmax(scores + attn_bias.float(), dim=-1)
     if keys is not None:
-        probs = dropout(probs, cfg.attention_probs_dropout_prob, keys[0])
+        probs = dropout(probs, cfg.attention_probs_dropout_prob, keys[0],
+                        _layout(tp, probs, heads=True))
     ctx = torch.einsum("bhqk,bkhd->bqhd", probs.to(hidden.dtype).float(),
-                       v.float()).to(hidden.dtype).reshape(b, s, h)
-    out = dense(ctx, att.output.dense.weight, att.output.dense.bias)
+                       v.float()).to(hidden.dtype).reshape(b, s, nh * hd)
+    out = row_parallel_dense(ctx, att.output.dense.weight,
+                             att.output.dense.bias, tp)
     if keys is not None:
-        out = dropout(out, cfg.hidden_dropout_prob, keys[1])
+        out = dropout(out, cfg.hidden_dropout_prob, keys[1],
+                      _layout(tp, out))
     ln = att.output.LayerNorm
     return layer_norm(hidden + out, ln.weight, ln.bias, cfg.layer_norm_eps)
 
 
 def _ffn(layer: "BertLayer", hidden: torch.Tensor, cfg: RealiseConfig,
-         key: Optional[KeyPair] = None) -> torch.Tensor:
+         key: Optional[KeyPair] = None, tp=None) -> torch.Tensor:
     act = ACTIVATIONS[cfg.hidden_act]
-    inter = act(dense(hidden, layer.intermediate.dense.weight,
+    x = hidden if tp is None else copy_to_model(hidden, tp.model_group)
+    inter = act(dense(x, layer.intermediate.dense.weight,
                       layer.intermediate.dense.bias))
-    out = dense(inter, layer.output.dense.weight, layer.output.dense.bias)
+    out = row_parallel_dense(inter, layer.output.dense.weight,
+                             layer.output.dense.bias, tp)
     if key is not None:
-        out = dropout(out, cfg.hidden_dropout_prob, key)
+        out = dropout(out, cfg.hidden_dropout_prob, key, _layout(tp, out))
     ln = layer.output.LayerNorm
     return layer_norm(hidden + out, ln.weight, ln.bias, cfg.layer_norm_eps)
 
 
 class BertLayer(nn.Module):
+    tp = None  # the rank's MeshGroups once parallel/tensor.shard_module ran
+
     def __init__(self, cfg: RealiseConfig):
         super().__init__()
         self.cfg = cfg
@@ -205,6 +252,10 @@ class BertLayer(nn.Module):
                 use_kernels: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
+        if self.tp is not None and use_kernels:
+            raise ValueError("a tensor-parallel layer runs the plain "
+                             "sub-blocks: the fused kernels need the whole "
+                             "hidden dim")
         if self.training:
             return self._train_forward(hidden, attn_bias, use_kernels,
                                        generator)
@@ -214,8 +265,9 @@ class BertLayer(nn.Module):
                 hidden, p_att, attn_bias, cfg.num_attention_heads,
                 cfg.layer_norm_eps)
             return bert_block.ffn_block(hidden, p_ffn, cfg.layer_norm_eps)
-        hidden = _self_attention(self.attention, hidden, attn_bias, cfg)
-        return _ffn(self, hidden, cfg)
+        hidden = _self_attention(self.attention, hidden, attn_bias, cfg,
+                                 tp=self.tp)
+        return _ffn(self, hidden, cfg, tp=self.tp)
 
     def _train_forward(self, hidden, attn_bias, use_kernels, generator):
         cfg = self.cfg
@@ -233,8 +285,8 @@ class BertLayer(nn.Module):
         keys = (None if gen is None else
                 (random_key(gen), random_key(gen), random_key(gen)))
         hidden = _self_attention(self.attention, hidden, attn_bias, cfg,
-                                 keys and keys[:2])
-        return _ffn(self, hidden, cfg, keys and keys[2])
+                                 keys and keys[:2], self.tp)
+        return _ffn(self, hidden, cfg, keys and keys[2], self.tp)
 
 
 class BertEncoder(nn.Module):
@@ -245,6 +297,8 @@ class BertEncoder(nn.Module):
 
 class BertModel(nn.Module):
     """Embeddings + encoder → (B, S, H) sequence output (no pooler)."""
+
+    tp = None  # the rank's MeshGroups once parallel/tensor.shard_module ran
 
     def __init__(self, cfg: RealiseConfig, num_layers: int,
                  with_word: bool = True):
@@ -298,7 +352,7 @@ class BertModel(nn.Module):
                                  cfg.attention_probs_dropout_prob)
             if gen is not None:
                 hidden = dropout(hidden, cfg.hidden_dropout_prob,
-                                 random_key(gen))
+                                 random_key(gen), _layout(self.tp, hidden))
         if attention_mask is None:
             attention_mask = torch.ones(hidden.shape[:2], dtype=torch.long,
                                         device=hidden.device)

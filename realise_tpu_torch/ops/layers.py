@@ -11,7 +11,7 @@ float32, deterministic backward.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,19 +35,38 @@ def mix32(h: Int32Like) -> Int32Like:
     return h ^ (h >> 16)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            key: Tuple[int, int]) -> torch.Tensor:
+def global_index(shape: Sequence[int], global_shape: Sequence[int],
+                 offsets: Sequence[int], device=None) -> torch.Tensor:
+    """The row-major index in an array of ``global_shape`` of every element
+    of its block of ``shape`` that starts at ``offsets``."""
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    for n, g, o in zip(shape, global_shape, offsets):
+        idx = idx[..., None] * g + (torch.arange(n, dtype=torch.int64,
+                                                 device=device) + o)
+    return idx
+
+
+def dropout(x: torch.Tensor, rate: float, key: Tuple[int, int],
+            layout: Optional[Tuple[Sequence[int], Sequence[int]]] = None
+            ) -> torch.Tensor:
     """Counter-hash dropout: element ``i`` is kept when the top 24 bits of
     ``mix32(base ^ mix32(i))`` fall under ``keep * 2**24``, and kept values
     are ``x / keep``. ``key``: two uint32 words, the words JAX reads from a
     key with ``jax.random.key_data`` (the JAX function gives the same mask
-    for the same words)."""
+    for the same words). ``layout``: (global shape, offsets) when ``x`` is
+    one rank's block of a larger array (tensor parallelism): ``i`` is then
+    the element's index in that array, as GSPMD partitions the JAX
+    function's global ``iota``, so the ranks' masks are the blocks of the
+    one-process mask."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
     k0, k1 = (int(k) & M32 for k in key)
     base = mix32(k1 ^ mix32(k0 ^ 0x9E3779B1))
-    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    if layout is None:
+        idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    else:
+        idx = global_index(x.shape, *layout, device=x.device)
     bits = mix32(base ^ mix32(idx))
     mask = (bits >> 8) < min(int(keep * (1 << 24)), 1 << 24)
     return torch.where(mask.reshape(x.shape), x / keep, torch.zeros_like(x))
@@ -59,7 +78,9 @@ class StreamGenerator(torch.Generator):
     state (one checkpoint restores them all) and draws the same values, and
     :func:`stream_value` mixes the rank in, as the JAX shard_map step folds
     ``axis_index("data")`` into its key (trainer.py:182-184). Stream 0 draws
-    exactly what a plain ``torch.Generator`` of the same seed draws."""
+    exactly what a plain ``torch.Generator`` of the same seed draws; every
+    rank of a tensor-parallel run draws it, as the GSPMD step has one key
+    (trainer.py:135-136), and places its blocks by ``dropout``'s layout."""
 
     stream = 0
 

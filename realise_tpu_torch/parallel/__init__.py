@@ -1,5 +1,5 @@
-"""Multi-GPU data parallelism on ``torch.distributed`` (the port of
-``realise_tpu.parallel``): one process per card, launched by torchrun."""
+"""Multi-GPU data and tensor parallelism on ``torch.distributed`` (the port
+of ``realise_tpu.parallel``): one process per card, launched by torchrun."""
 
 from realise_tpu_torch.parallel.distributed import (  # noqa: F401
     barrier,
@@ -11,4 +11,14 @@ from realise_tpu_torch.parallel.distributed import (  # noqa: F401
     process_count,
     process_index,
 )
-from realise_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
+from realise_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh,
+    make_mesh,
+    param_shardings,
+)
+from realise_tpu_torch.parallel.tensor import (  # noqa: F401
+    MeshGroups,
+    gather_state_dict,
+    mesh_groups,
+    shard_module,
+)

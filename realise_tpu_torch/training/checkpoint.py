@@ -30,6 +30,11 @@ In a process group (data parallelism: every rank holds the same weights
 and optimizer state) only rank 0 writes a checkpoint, and every rank waits
 at a barrier after the write, so a rank that loads it next finds it
 complete (``realise_tpu/training/checkpoint.py:47-80``). Every rank loads.
+Under tensor parallelism the caller passes the full, unsplit tensors
+(``Trainer.model_state_dict`` and ``Trainer.state_dict`` gather them over
+the model group, every rank of it taking part, before rank 0 writes), so a
+checkpoint is the same whatever mesh wrote it; a split model slices what
+it loads (``parallel/tensor.shard_module``).
 """
 
 from __future__ import annotations

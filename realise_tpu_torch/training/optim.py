@@ -17,9 +17,10 @@ package's arithmetic (optax ``clip_by_global_norm`` then ``adamw``):
 
 from __future__ import annotations
 
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 
@@ -70,12 +71,25 @@ def make_optimizer(model: nn.Module, learning_rate: float = 5e-5,
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        split: Optional[Sequence[bool]] = None,
+                        group=None) -> torch.Tensor:
     """Scale the gradients in place by ``max_norm / norm`` when their global
-    norm reaches ``max_norm`` (optax's rule); returns the norm. No host sync."""
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm reaches ``max_norm`` (optax's rule); returns the norm. No host sync.
+
+    Tensor parallelism: ``split[i]`` marks a gradient that is this rank's
+    slice of its parameter's. The squared norms of the split ones are
+    summed over the model ``group``; the replicated ones, the same on every
+    rank of the group, count once. The norm is then one process's."""
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if split is None or not any(split):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(list(split), device=norms.device)
+        sq = norms.square()
+        shards = sq[mask].sum().reshape(1)
+        dist.all_reduce(shards, op=dist.ReduceOp.SUM, group=group)
+        norm = torch.sqrt(sq[~mask].sum() + shards[0])
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads:

@@ -41,8 +41,9 @@ replays the same masks by construction; here the layer seeds come from a
 stateful generator, which must be restored for a resumed run to train on
 the masks of the run it continues.
 
-Data parallelism (``process_group``; the JAX Trainer's shard_map step,
-``train_step_shard``, trainer.py:167-243): one process per card, each
+Data parallelism (``mesh`` without a ``model`` axis; the JAX Trainer's
+shard_map step, ``train_step_shard``, trainer.py:167-243): one process per
+card, each
 holding the whole model and running the kernels on its own contiguous
 slice of the global batch, as that step's body runs on each device's
 shard. Each rank accumulates its loss sums, valid-token counts and
@@ -60,6 +61,37 @@ without a group draws, and rank 0's ``trainer.pt`` restores every rank.
 rank in rank order; its loss is the global sum over the global count. The
 (V, H) eval tables are built on every rank. Overlapping the all-reduce
 with the backward is not done.
+
+Tensor parallelism (``mesh`` with a ``model`` axis above 1; the JAX
+Trainer's GSPMD step, trainer.py:133-138 with ``param_shardings``,
+:374-384): the Trainer splits the model over the axis
+(``parallel/tensor.shard_module``), so the encoder layers run Megatron's
+column and row products on the plain path (the kernels need the whole
+hidden dim: ``use_kernels=None`` resolves to off and says why, ``True``
+raises). The sums above are all-reduced over the rank's data group only
+(the ranks of its model index; the world would count each replica
+``model`` times), and so are the eval's gather and sums. The conjugate
+operators make the replicated parameters' gradients equal on a model
+group's ranks, so they need no model all-reduce; the clip sums the split
+gradients' squares over the model group (``optim.clip_by_global_norm``),
+and AdamW steps the local slices, so its moments are split like their
+parameters. The step is then the GSPMD one, the one-process step on the
+global batch, and not the shard_map one: every rank draws stream 0 (one
+key), each dropout site indexes its mask by the element's place in the
+global array, and the BatchNorm statistics are the global batch's. The
+glyph stream gets that from ``Realise.conv_rows`` over the data group: the
+data ranks all-reduce each microbatch's glyph-row counts and each runs the
+conv over the union of their rows with the global counts, the one forward
+of every data rank, so the gradient all-reduce sums the global gradient
+and the running statistics are the same on every rank with no averaging. With
+``grad_accum_steps`` a microbatch is the union of every data rank's
+contiguous part of its rows (the GSPMD step cuts the global batch into
+contiguous parts instead, which differs only where BatchNorm sees the
+partition). ``model_state_dict`` and ``state_dict`` gather the full
+tensors (the AdamW moments too) over the model group, and loading slices
+them again: a checkpoint holds the unsplit weights whatever the mesh. A
+model with nothing to split (``res-pretrain``) trains as on the data axis
+alone, each model rank a copy.
 """
 
 from __future__ import annotations
@@ -83,6 +115,14 @@ from realise_tpu_torch.models.realise import (
 from realise_tpu_torch.ops.kernels import kernels_unviable_reason
 from realise_tpu_torch.ops.layers import dropout_generator
 from realise_tpu_torch.parallel.distributed import gather_rows
+from realise_tpu_torch.parallel.mesh import param_shardings
+from realise_tpu_torch.parallel.tensor import (
+    gather_state_dict,
+    gather_tensor,
+    mesh_groups,
+    shard_module,
+    shard_tensor,
+)
 from realise_tpu_torch.training.optim import (
     clip_by_global_norm,
     linear_warmup_schedule,
@@ -103,9 +143,10 @@ class Trainer:
     for CUDA; a config the kernels cannot run raises with the reason unless
     the caller passes ``use_kernels=False``. ``per_token_streams``: run the
     GRU and conv streams per token slot, the reference path the factorized
-    streams are checked and timed against. ``process_group``: the ranks
-    this trainer's steps all-reduce over; default the initialized default
-    group, else none (one process)."""
+    streams are checked and timed against. ``mesh``: a ``parallel.Mesh``
+    over the initialized process group, or the ``MeshGroups`` of one;
+    default every rank of the group on ``data``, none without a group (one
+    process)."""
 
     def __init__(
         self,
@@ -122,10 +163,33 @@ class Trainer:
         seed: int = 17,
         device=None,
         per_token_streams: bool = False,
-        process_group=None,
+        mesh=None,
     ):
         self.cfg = cfg
         self.device = resolve_device(device)
+        groups = self.groups = mesh_groups(mesh)
+        self.tensor_parallel = groups is not None and any(
+            d is not None for d in param_shardings(
+                model.named_parameters(), groups.mesh).values())
+        if self.tensor_parallel:
+            if use_kernels:
+                raise ValueError(
+                    f"mesh {groups.mesh}: a model axis above 1 runs the "
+                    f"plain sub-blocks (the fused train kernels need the "
+                    f"whole hidden dim); pass use_kernels=False or None")
+            if use_kernels is None:
+                logger.info("kernels off under mesh %s: the tensor-parallel "
+                            "layers run the plain sub-blocks (the fused "
+                            "kernels need the whole hidden dim)", groups.mesh)
+            use_kernels = False
+        self.data_index = 0 if groups is None else groups.data_index
+        self.data_size = 1 if groups is None else groups.mesh.data
+        self.data_group = None if groups is None else groups.data_group
+        if self.tensor_parallel and per_token_streams and self.data_size > 1:
+            raise ValueError("per-token streams under a data×model mesh "
+                             "would take BatchNorm statistics per data rank; "
+                             "the tensor-parallel step runs the factorized "
+                             "streams")
         if use_kernels is None:
             use_kernels = self.device.type == "cuda"
         if use_kernels:
@@ -143,18 +207,21 @@ class Trainer:
         self.pretrain = isinstance(model, RealisePretrain)
         self.grad_accum_steps = grad_accum_steps
         self.max_grad_norm = max_grad_norm
+        self.splits = (shard_module(model, groups) if self.tensor_parallel
+                       else {})
         self.model = model.to(self.device).train()
         self.optimizer = make_optimizer(self.model, learning_rate,
                                         weight_decay, adam_epsilon)
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        # The optimizer state's indices, by name: its groups' order.
+        self._opt_names = [names[id(p)] for g in self.optimizer.param_groups
+                           for p in g["params"]]
+        self._split_mask = [n in self.splits
+                            for n, _ in self.model.named_parameters()]
         self.schedule = linear_warmup_schedule(learning_rate, warmup_steps,
                                                total_steps)
-        if process_group is None and dist.is_initialized():
-            process_group = dist.group.WORLD
-        self.process_group = process_group
-        self.rank = 0 if process_group is None else dist.get_rank(process_group)
-        self.world_size = (1 if process_group is None
-                           else dist.get_world_size(process_group))
-        self.generator = dropout_generator(seed, self.rank)
+        self.generator = dropout_generator(
+            seed, 0 if self.tensor_parallel else self.data_index)
         self.step = 0
         self._eval_tables: Optional[Dict[str, torch.Tensor]] = None
 
@@ -167,11 +234,15 @@ class Trainer:
             raise ValueError(f"batch of {rows} rows does not split into "
                              f"{n} microbatches")
         size = rows // n
+        # Under a data×model mesh the conv runs over the data ranks' rows
+        # with their summed counts: the global batch's BatchNorm statistics.
+        group = (self.data_group if self.tensor_parallel
+                 and self.data_size > 1 else None)
         out = []
         for i in range(n):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             if not self.per_token_streams and "src_idx" in mb:
-                mb.update(self.model.conv_rows(mb["src_idx"]))
+                mb.update(self.model.conv_rows(mb["src_idx"], group))
             out.append(to_device(mb, self.device))
         return out
 
@@ -201,7 +272,7 @@ class Trainer:
             if p.grad is None:  # unused this step: a zero gradient, as in JAX
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
-        if self.process_group is not None:
+        if self.data_group is not None:
             with span("all-reduce"):
                 self.all_reduce_sum([loss_sum, count] + grads)
         with span("clip+adamw"):
@@ -209,9 +280,11 @@ class Trainer:
             for g in grads:
                 g.div_(denom)
             if self.max_grad_norm is not None:
-                clip_by_global_norm(grads, self.max_grad_norm)
+                clip_by_global_norm(
+                    grads, self.max_grad_norm, self._split_mask,
+                    self.groups.model_group if self.tensor_parallel else None)
             self.optimizer.step()
-        if self.process_group is not None:
+        if self.data_group is not None and not self.tensor_parallel:
             self._average_running_stats()
         self.step += 1
         return loss_sum / denom
@@ -227,7 +300,7 @@ class Trainer:
         def flush():
             flat = torch.cat([t.reshape(-1) for t in bucket])
             dist.all_reduce(flat, op=dist.ReduceOp.SUM,
-                            group=self.process_group)
+                            group=self.data_group)
             offset = 0
             for t in bucket:
                 t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -244,26 +317,67 @@ class Trainer:
             flush()
 
     def _average_running_stats(self) -> None:
-        """BatchNorm's running statistics, the mean over the ranks."""
+        """BatchNorm's running statistics, the mean over the data ranks."""
         stats = [b for name, b in self.model.named_buffers()
                  if name.endswith(("running_mean", "running_var"))]
         if stats:
             with torch.no_grad():
                 self.all_reduce_sum(stats)
                 for b in stats:
-                    b.div_(self.world_size)
+                    b.div_(self.data_size)
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state dict with its full, unsplit tensors (gathered
+        over the model group under tensor parallelism: every rank of the
+        group must call it): what a checkpoint's ``model.pt`` holds."""
+        state = self.model.state_dict()
+        if not self.splits:
+            return state
+        return gather_state_dict(state, self.splits, self.groups.model_group)
+
+    def _moments(self, opt_state: Dict[str, Any], part) -> Dict[str, Any]:
+        """``opt_state`` (an optimizer ``state_dict()``) with each split
+        parameter's moment tensors passed through ``part(tensor, dim,
+        name)``, in new dicts (the optimizer's own hold its live state)."""
+        out = dict(opt_state, state=dict(opt_state["state"]))
+        for i, st in opt_state["state"].items():
+            name = self._opt_names[i]
+            dim = self.splits.get(name)
+            if dim is not None:
+                out["state"][i] = {
+                    k: part(v, dim, name) if k.startswith("exp_avg") else v
+                    for k, v in st.items()}
+        return out
 
     def state_dict(self) -> Dict[str, Any]:
         """The optimizer's state, the step and the dropout generator's state
-        (the model's weights are saved apart, ``model.state_dict()``)."""
-        return {"optimizer": self.optimizer.state_dict(), "step": self.step,
+        (the model's weights are saved apart, :meth:`model_state_dict`).
+        Under tensor parallelism the AdamW moments of the split parameters
+        are gathered over the model group into their full tensors."""
+        opt = self.optimizer.state_dict()
+        if self.splits:
+            group = self.groups.model_group
+            opt = self._moments(opt,
+                                lambda t, d, _: gather_tensor(t, d, group))
+        return {"optimizer": opt, "step": self.step,
                 "generator": self.generator.get_state()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        """Restore :meth:`state_dict`. AdamW casts its moments to each
-        parameter's device and dtype; the params are float32, so the moments
-        come back exactly."""
-        self.optimizer.load_state_dict(state["optimizer"])
+        """Restore :meth:`state_dict`, whatever mesh wrote it: a split
+        parameter's full moments are sliced to this rank's part. AdamW
+        casts its moments to each parameter's device and dtype; the params
+        are float32, so the moments come back exactly."""
+        opt = state["optimizer"]
+        if self.splits:
+            index, count = self.groups.model_index, self.groups.mesh.model
+
+            def part(t, dim, name):
+                local = self.model.get_parameter(name)
+                return (t if t.shape == local.shape
+                        else shard_tensor(t, dim, index, count))
+
+            opt = self._moments(opt, part)
+        self.optimizer.load_state_dict(opt)
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
 
@@ -301,13 +415,13 @@ class Trainer:
                              tables=self._eval_tables,
                              use_kernels=self.use_kernels)
         pred = out["logits"].argmax(-1)
-        if self.process_group is not None:
-            pred = gather_rows(pred, self.process_group)
+        if self.data_group is not None:
+            pred = gather_rows(pred, self.data_group)
         res = {"pred_idx": pred.cpu().numpy()}
         if "loss_sum" in out:
             sums = [out["loss_sum"].float().clone(),
                     out["loss_count"].float().clone()]
-            if self.process_group is not None:
+            if self.data_group is not None:
                 self.all_reduce_sum(sums)
             res["loss"] = float(sums[0] / torch.clamp(sums[1], min=1.0))
         return res

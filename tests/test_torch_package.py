@@ -31,7 +31,8 @@ def test_port_files_found():
     "cli/common.py", "cli/train.py", "cli/test.py", "eval/metric_core.py",
     "eval/remove_de.py", "eval/sig_test.py", "cli/serve.py", "data/native.py",
     "models/torch_import.py", "training/checkpoint.py", "serving.py",
-    "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py"])
+    "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+    "parallel/tensor.py"])
 def test_scan_covers_the_training_modules(module):
     assert ROOT / "realise_tpu_torch" / module in FILES
 

@@ -82,8 +82,11 @@ def test_make_mesh_checks_the_group():
     with pytest.raises(ValueError, match=r"needs 2 processes.* has 1.*"
                                          r"torchrun --nproc_per_node 2"):
         mesh.make_mesh({"data": 2}, world_size=1)
-    with pytest.raises(ValueError, match="item 6b"):
-        mesh.make_mesh({"data": 1, "model": 2}, world_size=2)
+    assert mesh.make_mesh({"data": 1, "model": 2}, world_size=2).model == 2
+    with pytest.raises(ValueError, match=r"model axis of 5 must divide "
+                                         r"num_attention_heads \(12\)"):
+        mesh.make_mesh({"data": 1, "model": 5}, world_size=1, cfg=PCFG.replace(
+            num_attention_heads=12, intermediate_size=3072))
     with pytest.raises(ValueError, match="first"):
         mesh.make_mesh({"model": 1, "data": 2}, world_size=2)
     with pytest.raises(ValueError, match="unknown"):

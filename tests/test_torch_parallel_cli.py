@@ -146,17 +146,26 @@ def test_rank1_scores_into_its_own_files(cli_ranks, prefix):
                          ids=["train", "test", "pretrain_pho", "pretrain_res"])
 def test_mesh_errors_exit_with_the_reason(cli, tmp_path, monkeypatch):
     """In one process: a mesh of 2 ranks names the torchrun launch that
-    fits, a model axis names ROADMAP item 6b, a bad axis the syntax; each
-    before the device is touched."""
+    fits, a model axis that does not divide the heads (the preset's, or the
+    checkpoint's for cli/test) names them, a bad axis the syntax; each
+    before the process group forms and the device is touched."""
     for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
               "LOCAL_RANK"):
         monkeypatch.delenv(k, raising=False)
     base = (["--ckpt_dir", str(tmp_path)] if cli is ttest
             else ["--output_dir", str(tmp_path)])
     base += ["--synthetic", "--device", "cpu"]
+    if cli is ttest:  # a checkpoint's config: the tiny preset's 2 heads
+        from realise_tpu_torch.cli.common import TINY_OVERRIDES
+        from realise_tpu_torch.config import config_for
+
+        config_for("bert-pho2-res-arch3", **TINY_OVERRIDES).save(
+            str(tmp_path))
+        open(os.path.join(tmp_path, tckpt.MODEL_FILE), "wb").close()
     for mesh, reason in (("data=2", "torchrun --nproc_per_node 2"),
-                         ("data=1,model=2", "item 6b"),
+                         ("data=1,model=5", "num_attention_heads"),
                          ("data:2", "bad axis")):
         with pytest.raises(SystemExit, match=reason):
             cli.main(base + ["--mesh", mesh])
     assert not torch.distributed.is_initialized()
+

@@ -1,15 +1,17 @@
-"""The ranks of the port's data-parallel tests (tests/test_torch_parallel*.py).
+"""The ranks of the port's data- and tensor-parallel tests
+(tests/test_torch_parallel*.py, tests/test_torch_tensor_parallel.py).
 
 Each rank is a process of its own that imports no JAX: the tests start two
-with :func:`start_ranks`, on one torch intra-op thread each, and compare
-what they write with the JAX package in the test process.
+or four with :func:`start_ranks`, on one torch intra-op thread each, and
+compare what they write with the JAX package in the test process.
 
     python tests/torch_parallel_workers.py SCENARIO RANK WORLD WORK_DIR
 
-``library`` forms a gloo group through ``parallel.distributed.initialize``
-(a ``file://`` store in WORK_DIR) and drives the Trainer; ``cli`` sets
-torchrun's environment (``env://`` on the port in WORK_DIR/port) and drives
-the CLIs. Each rank writes ``WORK_DIR/rank{RANK}.pt``.
+``library`` and ``tensor`` form a gloo group through
+``parallel.distributed.initialize`` (a ``file://`` store in WORK_DIR) and
+drive the Trainer; ``cli`` and ``cli_tensor`` set torchrun's environment
+(``env://`` on the port in WORK_DIR/port) and drive the CLIs. Each rank
+writes ``WORK_DIR/rank{RANK}.pt``.
 """
 
 from __future__ import annotations
@@ -102,6 +104,8 @@ def library(rank: int, world: int, work: str) -> dict:
     from realise_tpu_torch.config import RealiseConfig
     from realise_tpu_torch.ops.layers import dropout_generator
     from realise_tpu_torch.parallel.distributed import gather_rows, initialize
+    from realise_tpu_torch.parallel.mesh import make_mesh
+    from realise_tpu_torch.parallel.tensor import MeshGroups
     from realise_tpu_torch.training.checkpoint import (
         load_checkpoint,
         load_trainer_state,
@@ -170,9 +174,10 @@ def library(rank: int, world: int, work: str) -> dict:
     # World 1: a group of this rank alone gives the bits of a trainer
     # without a group (the test runs that one).
     groups = [dist.new_group([r]) for r in range(world)]
+    solo = MeshGroups(make_mesh({"data": 1}, world_size=1),
+                      data_group=groups[rank])
     alone = Trainer(dcfg, _model(dcfg, inp["sd"]), use_kernels=True,
-                    device="cpu", seed=5, process_group=groups[rank],
-                    **inp["trainer_kw"])
+                    device="cpu", seed=5, mesh=solo, **inp["trainer_kw"])
     out["world1_losses"] = [float(alone.train_step(b)) for b in batches[:2]]
     out["world1"] = _state(alone.model)
     return out
@@ -270,6 +275,214 @@ def cli(rank: int, world: int, work: str) -> dict:
     return out
 
 
+def tensor(rank: int, world: int, work: str) -> dict:
+    """The Trainer under ``inp['axes']`` (data=2,model=2 over four ranks):
+    first the eval-mode forward of ``inp['eval_batch']`` on the model split
+    over each data index's model group alone (a data=1,model=2 mesh); at
+    dropout 0 one step (its loss, the clip's norm, the gathered
+    gradients, weights and AdamW moments, the eval of the new weights), a
+    checkpoint of the full tensors and a second step; a step with
+    ``grad_accum_steps=2``; three steps at dropout 0.1; and a one-process
+    checkpoint loaded onto the mesh and stepped."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from realise_tpu_torch.config import RealiseConfig
+    from realise_tpu_torch.parallel.distributed import initialize, local_slice
+    from realise_tpu_torch.parallel.mesh import make_mesh
+    from realise_tpu_torch.parallel.tensor import (
+        MeshGroups,
+        gather_tensor,
+        mesh_groups,
+        shard_module,
+    )
+    from realise_tpu_torch.training import trainer as trainer_module
+    from realise_tpu_torch.training.checkpoint import (
+        load_checkpoint,
+        load_trainer_state,
+        save_checkpoint,
+    )
+    from realise_tpu_torch.training.trainer import Trainer
+
+    initialize(f"file://{work}/store", world, rank, device="cpu")
+    inp = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    cfg = RealiseConfig.from_dict(inp["cfg"])
+    mesh = make_mesh(inp["axes"])
+    d, n = mesh.data_index(rank), mesh.data
+    norms = []
+    clip = trainer_module.clip_by_global_norm
+
+    def recording_clip(*a, **kw):
+        norm = clip(*a, **kw)
+        norms.append(float(norm))
+        return norm
+
+    trainer_module.clip_by_global_norm = recording_clip
+
+    def rows(batch):
+        return {k: np.asarray(local_slice(v, d, n)) for k, v in batch.items()}
+
+    def trainer(c, **kw):
+        return Trainer(c, _model(c, inp["sd"]), device="cpu", mesh=mesh,
+                       **dict(inp["trainer_kw"], **kw))
+
+    def full(tr):  # the gathered weights, copied: the live ones move on
+        return {k: v.clone() for k, v in tr.model_state_dict().items()}
+
+    groups = mesh_groups(mesh)
+    pair = MeshGroups(make_mesh({"data": 1, "model": 2}, world_size=2),
+                      model_index=groups.model_index,
+                      model_group=groups.model_group)
+    model = _model(cfg, inp["sd"])
+    shard_module(model, pair)
+    with torch.no_grad():
+        logits = model({k: torch.as_tensor(v, dtype=torch.long)
+                        for k, v in inp["eval_batch"].items()})["logits"]
+    out = {"forward": logits}
+    tr = trainer(cfg)
+    params = dict(tr.model.named_parameters())
+    res = {"loss": float(tr.train_step(rows(inp["batch"]))),
+           "norm": norms[-1], "splits": dict(tr.splits),
+           "use_kernels": tr.use_kernels,
+           "grads": {k: (gather_tensor(p.grad, tr.splits[k],
+                                       tr.groups.model_group)
+                         if k in tr.splits else p.grad.clone())
+                     for k, p in params.items()},
+           "replicated": {k: v.clone() for k, v in tr.model.state_dict().items()
+                          if k not in tr.splits},
+           "state": full(tr)}
+    opt = tr.optimizer.state_dict()["state"]
+    res["moment_shapes_local"] = all(
+        opt[i][m].shape == params[name].shape
+        for i, name in enumerate(tr._opt_names)
+        for m in ("exp_avg", "exp_avg_sq"))
+    res["trainer_state"] = copy.deepcopy(tr.state_dict())
+    res["eval"] = tr.eval_step(rows(inp["eval_batch"]))
+    save_checkpoint(os.path.join(work, "tp"), 1, tr.model_state_dict(), cfg,
+                    trainer_state=tr.state_dict())
+    res["loss2"] = float(tr.train_step(rows(inp["batch2"])))
+    res["state2"] = full(tr)
+    out["step"] = res
+
+    tr = trainer(cfg, grad_accum_steps=2)
+    out["accum2"] = {"loss": float(tr.train_step(rows(inp["batch"]))),
+                     "state": full(tr)}
+
+    dcfg = cfg.replace(hidden_dropout_prob=0.1,
+                       attention_probs_dropout_prob=0.1)
+    tr = trainer(dcfg, seed=5)
+    out["dropout"] = {"losses": [float(tr.train_step(rows(b)))
+                                 for b in inp["dropout_batches"]],
+                      "state": full(tr)}
+
+    # The first dropout step's masks as chip_smoke.py's phase 16b records
+    # them: as the program draws them, and with the first head-split site's
+    # layout taken away (its block's mask drawn by the block's own indices).
+    import chip_smoke
+    from realise_tpu_torch.ops import bert as bert_module
+
+    layout = bert_module._layout
+    heads_seen = []
+
+    def planted(tp, x, heads=False):
+        heads_seen.append(heads)
+        if heads and heads_seen.count(True) == 1:
+            return None
+        return layout(tp, x, heads)
+
+    out["masks"] = {}
+    for plant in (False, True):
+        bert_module._layout = planted if plant else layout
+        try:
+            with chip_smoke.recorded_masks() as calls:
+                trainer(dcfg, seed=5).train_step(
+                    rows(inp["dropout_batches"][0]))
+        finally:
+            bert_module._layout = layout
+        out["masks"][plant] = calls
+
+    tr = trainer(cfg)
+    one = os.path.join(work, "one", "saved_ckpt-1")
+    tr.model.load_state_dict(load_checkpoint(one))
+    tr.load_state_dict(load_trainer_state(one))
+    out["resumed"] = {"loss": float(tr.train_step(rows(inp["batch2"]))),
+                      "state": full(tr)}
+    return out
+
+
+def cli_tensor(rank: int, world: int, work: str) -> dict:
+    """cli/train --distributed (dropout 0), cli/test and both pretraining CLIs under ``--mesh`` WORK_DIR/mesh, with their
+    loss traces."""
+    import contextlib
+
+    from realise_tpu_torch.cli import pretrain_pho, pretrain_res
+    from realise_tpu_torch.cli import test as ttest
+    from realise_tpu_torch.cli import train as ttrain
+    from realise_tpu_torch.training.trainer import Trainer
+
+    with open(os.path.join(work, "port")) as f:
+        port = f.read().strip()
+    with open(os.path.join(work, "mesh")) as f:
+        mesh = ["--mesh", f.read().strip()]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    out = {}
+
+    @contextlib.contextmanager
+    def recorded(name):
+        losses = out.setdefault(name, [])
+        step = Trainer.train_step
+
+        def train_step(self, batch):
+            loss = step(self, batch)
+            losses.append(float(loss))
+            out["use_kernels"] = self.use_kernels
+            return loss
+
+        Trainer.train_step = train_step
+        try:
+            yield
+        finally:
+            Trainer.train_step = step
+
+    def path(name):
+        return os.path.join(work, name)
+
+    build_config = ttrain.build_config
+    ttrain.build_config = lambda *a: build_config(*a).replace(
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    try:
+        with recorded("train"):
+            assert ttrain.main(TENSOR_TRAIN + ["--distributed"] + mesh + [
+                "--output_dir", path("train")]) == 0
+    finally:
+        ttrain.build_config = build_config
+    assert ttest.main(["--ckpt_dir", path("train"), "--synthetic",
+                       "--device", "cpu"] + mesh) == 0
+    with recorded("pretrain_pho"):
+        assert pretrain_pho.main(TENSOR_PHO + mesh + [
+            "--output_dir", path("pho")]) == 0
+    with recorded("pretrain_res"):
+        assert pretrain_res.main(TENSOR_RES + mesh + [
+            "--output_dir", path("res")]) == 0
+    return out
+
+
+# The runs of ``cli_tensor`` (the test runs them in one process too).
+TENSOR_TRAIN = ["--synthetic", "--tiny", "--device", "cpu", "--no_prefetch",
+                "--logging_steps", "1", "--seed", "3",
+                "--per_device_train_batch_size", "4", "--max_steps", "3",
+                "--save_steps", "2", "--do_train"]
+TENSOR_PHO = ["--synthetic", "--tiny", "--device", "cpu", "--max_steps", "2",
+              "--per_device_train_batch_size", "2",
+              "--gradient_accumulation_steps", "1", "--save_steps", "0"]
+TENSOR_RES = ["--synthetic", "--tiny", "--device", "cpu", "--max_steps", "2",
+              "--per_device_train_batch_size", "8"]
+
+
 def main(argv) -> int:
     scenario, rank, world, work = argv[0], int(argv[1]), int(argv[2]), argv[3]
     import torch
@@ -278,7 +491,8 @@ def main(argv) -> int:
 
     torch.set_num_threads(1)
     try:
-        out = {"library": library, "cli": cli}[scenario](rank, world, work)
+        out = {"library": library, "cli": cli, "tensor": tensor,
+               "cli_tensor": cli_tensor}[scenario](rank, world, work)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         shutdown()

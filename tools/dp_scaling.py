@@ -1,8 +1,12 @@
-"""Phase 15d of chip_smoke.py alone: torchrun of ``cli/train --distributed
---mesh data=N --length_buckets 32,64,128`` at 64 rows a card over N = 1, 2
-and 4 cards of one host (up to the count), each rank's loss trace, step
-time and all-reduce time, and the sentences/s at each N; NCCL's transport
-lines of each run are printed.
+"""Phases 15d and 16e of chip_smoke.py alone: torchrun of ``cli/train
+--distributed --mesh data=N --length_buckets 32,64,128`` at 64 rows a card
+over N = 1, 2 and 4 cards of one host (up to the count), each rank's loss
+trace, step time and all-reduce time, and the sentences/s at each N (15d);
+then, with two or more cards, of ``--mesh data=N/2,model=2`` (tensor
+parallelism, 4 steps) at 64 rows a data rank for N = 2 and 4: each run's
+loss trace, step time, the model group's reduces' CUDA-event ms and its
+sentences/s beside the data-only run on the same cards (16e). NCCL's
+transport lines of each run are printed.
 
     python3 tools/dp_scaling.py     # from the repository root, 2+ cards
 """
@@ -45,6 +49,12 @@ cs.run_processes = run_processes
 with tempfile.TemporaryDirectory() as root:
     flags = cs.dp_corpus(root, 4096, 64)
     t = time.perf_counter()
-    cs.dp_scaling(card[0], root, flags, cs.encoder_layers(config_for(cs.ARCH3)),
-                  [n for n in (1, 2, 4) if n <= count])
+    rates = cs.dp_scaling(card[0], root, flags,
+                          cs.encoder_layers(config_for(cs.ARCH3)),
+                          [n for n in (1, 2, 4) if n <= count])
     cs.log(f"phase 15d {time.perf_counter() - t:.1f} s")
+    if count >= 2:
+        t = time.perf_counter()
+        cs.tp_scaling(card[0], root, flags,
+                      [n for n in (2, 4) if n <= count], rates)
+        cs.log(f"phase 16e {time.perf_counter() - t:.1f} s")

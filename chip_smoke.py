@@ -1449,44 +1449,17 @@ def seeded_model(cfg, seed):
     return model
 
 
-class StepSplit:
-    """CUDA events around each part of a training step that the model and
-    the Trainer bracket (``Realise.span``), summed by name."""
-
-    def __init__(self):
-        self.events = []
-
-    @contextlib.contextmanager
-    def span(self, name):
-        import torch
-
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self.events.append((name, start, end))
-
-    def totals(self):
-        import torch
-
-        torch.cuda.synchronize()
-        out = {}
-        for name, start, end in self.events:
-            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
-        return out
-
-
 def step_split(trainer, batch, label, card):
     """A warm-up step of ``trainer`` on ``batch`` (cuDNN plans its
     convolutions for new shapes on the host), one step with its parts timed,
     then one under the profiler; returns {'parts': {part: ms}, 'step_ms',
     'host_ms', 'kernel_ms', 'peak_gib', 'loss'} and logs them with the rows
-    each stream ran."""
+    each stream ran (``utils/profiler.SpanRecorder`` over the model's and
+    the Trainer's spans)."""
     import numpy as np
     import torch
+
+    from realise_tpu_torch.utils.profiler import SpanRecorder
 
     model = trainer.model
     if "char_idx" in batch:  # res-pretrain: (N,) chars, convolved as they come
@@ -1505,7 +1478,7 @@ def step_split(trainer, batch, label, card):
             gru_rows = f"{min(model.pho_uniq_idx.shape[0], b * s)}"
     device = next(model.parameters()).device
     trainer.train_step(batch)
-    split, plain_span = StepSplit(), model.span
+    split, plain_span = SpanRecorder(device), model.span
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
     model.span = split.span
@@ -1516,8 +1489,11 @@ def step_split(trainer, batch, label, card):
     finally:
         model.span = plain_span
     host_ms = 1e3 * (time.perf_counter() - t)
-    parts = split.totals()
+    parts = {name: tot["device_ms"] for name, tot in split.totals().items()}
     step_ms = parts.pop("step")
+    # The encoder's backward spans lie inside 'backward'.
+    top_ms = sum(ms for name, ms in parts.items()
+                 if not name.startswith("encoder."))
     kernel_ms = sum(ms for ms, _ in kernel_breakdown(
         lambda: trainer.train_step(batch), f"split {label} step B={b} S={s}",
         iters=1))
@@ -1529,7 +1505,7 @@ def step_split(trainer, batch, label, card):
         f"memory {peak:.2f} GiB; loss {loss:.6f} [{card}]")
     log(f"  split {label} B={b}: " + ", ".join(
         f"{name} {ms:.3f}" for name, ms in parts.items())
-        + f", rest {step_ms - sum(parts.values()):.3f} ms")
+        + f", rest {step_ms - top_ms:.3f} ms")
     return dict(parts=parts, step_ms=step_ms, host_ms=host_ms,
                 kernel_ms=kernel_ms, peak_gib=peak, loss=loss,
                 conv_rows=conv_rows, gru_rows=gru_rows)

@@ -20,7 +20,10 @@ featurizes each batch at its bucket's length instead of
 ``--max_seq_length``; an epoch is then the iterator's batches, each bucket
 ending with a short one of its own. ``--trace_dir`` writes a
 ``torch.profiler`` trace of the first ``--trace_steps`` steps (the host
-and, on CUDA, every kernel), then the same stream goes on untraced.
+and, on CUDA, every kernel, with the step's spans as named ranges) and
+logs each span's count, device ms and host ms a step
+(``utils/profiler.SpanRecorder``), then the same stream goes on untraced,
+without spans.
 ``--init_ckpt`` starts from a checkpoint's
 weights with a fresh optimizer at step 0 (a ``cli/merge`` checkpoint, the
 reference's recipe); ``--pho_ckpt``/``--res_ckpt`` then overlay the
@@ -284,16 +287,32 @@ def main(argv=None) -> int:
                 # untraced: fit holds no batch back, so step k still trains
                 # on batch k. The kernels are built and loaded first, so
                 # the trace holds steps and not the compiler.
-                from realise_tpu_torch.utils.profiler import trace
+                from realise_tpu_torch.utils.profiler import (SpanRecorder,
+                                                              trace)
 
                 if trainer.use_kernels:
                     from realise_tpu_torch.ops.kernels._build import load
 
                     load("bert_block_train")
-                with trace(args.trace_dir, device):
-                    trainer.fit(stream, max_steps=min(
-                        trainer.step + args.trace_steps, total_steps), **fit_kw)
+                spans = SpanRecorder(device)
+                plain, first = trainer.model.span, trainer.step
+                trainer.model.span = spans.span
+                try:
+                    with trace(args.trace_dir, device):
+                        trainer.fit(stream, max_steps=min(
+                            trainer.step + args.trace_steps, total_steps),
+                            **fit_kw)
+                finally:
+                    trainer.model.span = plain
                 logger.info("wrote the profiler trace to %s", args.trace_dir)
+                steps = max(trainer.step - first, 1)
+                logger.info("spans of %d traced steps (count, ms a step): %s",
+                            steps, "; ".join(
+                                f"{name} x{t['count']}"
+                                + (f", device {t['device_ms'] / steps:.3f}"
+                                   if "device_ms" in t else "")
+                                + f", host {t['host_ms'] / steps:.3f}"
+                                for name, t in spans.totals().items()))
             summary = trainer.fit(stream, max_steps=total_steps, **fit_kw)
         finally:
             stream.close()  # stops and joins the prefetch worker

@@ -65,7 +65,6 @@ The per-token streams stay as the reference path (``per_token=True``).
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -91,6 +90,7 @@ from realise_tpu_torch.ops.layers import (
     table_gather,
 )
 from realise_tpu_torch.ops.resnet import CharResNet
+from realise_tpu_torch.utils.profiler import no_span
 
 
 class _MaskedCE(torch.autograd.Function):
@@ -192,11 +192,6 @@ def row_bucket(n: int) -> int:
     return -(-n // q) * q
 
 
-def no_span(name: str):
-    """The default :attr:`Realise.span`: brackets nothing."""
-    return contextlib.nullcontext()
-
-
 def _check_wiring(cfg: RealiseConfig) -> None:
     if cfg.fusion == "pretrain":
         raise ValueError(
@@ -231,9 +226,12 @@ class _TokenStreams(nn.Module):
 
     ``span(name)`` brackets each part of the forward ('semantic', 'glyph',
     'gru' (the pho2 GRU or the pho1 lookups), 'pho_bert', 'fusion+output',
-    'head+ce'; the Trainer adds 'backward' and 'clip+adamw'); the default
-    brackets nothing, a caller that times the parts sets its own
-    context-manager factory.
+    'head+ce'); the encoder stacks hand it to their train kernels, whose
+    backwards bracket 'encoder.attn_bwd' and 'encoder.ffn_bwd'; the Trainer
+    adds the rest of the step (training/trainer.py). The default,
+    :func:`no_span`, brackets nothing; a caller that times the parts sets
+    its own context-manager factory (``utils/profiler.SpanRecorder``). Each
+    site reads the hook when it runs, so it can be swapped at any step.
 
     ``tp``: the rank's ``MeshGroups`` once ``parallel/tensor.shard_module``
     split the model over a ``model`` axis (its dropout then indexes the
@@ -569,7 +567,8 @@ class Realise(_TokenStreams):
 
         with span("semantic"):
             sem = self.bert(input_ids=src_idx, attention_mask=mask,
-                            use_kernels=use_kernels, generator=generator)
+                            use_kernels=use_kernels, generator=generator,
+                            span=span)
 
         res = None
         if cfg.with_res:
@@ -591,7 +590,7 @@ class Realise(_TokenStreams):
             with span("pho_bert"):
                 streams.append(self.pho_model(
                     inputs_embeds=pho_in, attention_mask=mask,
-                    use_kernels=use_kernels, generator=generator))
+                    use_kernels=use_kernels, generator=generator, span=span))
         if res is not None and not (merged and cfg.with_pho):
             streams.append(res)
 
@@ -616,7 +615,7 @@ class Realise(_TokenStreams):
                                            attention_mask=mask,
                                            position_ids=position_ids,
                                            use_kernels=use_kernels,
-                                           generator=generator)
+                                           generator=generator, span=span)
             if self.training and generator is not None:
                 hidden = dropout(hidden, cfg.hidden_dropout_prob,
                                  random_key(generator),
@@ -734,7 +733,8 @@ class RealisePretrain(_TokenStreams):
         with span("pho_bert"):
             seq = self.pho_bert(inputs_embeds=hidden,
                                 attention_mask=batch["masks"],
-                                use_kernels=use_kernels, generator=generator)
+                                use_kernels=use_kernels, generator=generator,
+                                span=span)
         with span("head+ce"):
             logits_nb, bias = self.cls2(seq)
             has_loss = "tgt_idx" in batch and "loss_masks" in batch

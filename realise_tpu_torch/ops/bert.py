@@ -13,12 +13,15 @@ sub-blocks :func:`_self_attention` / :func:`_ffn`. In training mode it runs
 the differentiable train blocks with in-kernel dropout
 (ops/kernels/bert_block_train.py; their plain versions for CPU tensors) when
 ``use_kernels`` is set, with one seed per layer drawn on the host from the
-caller's generator in [0, 2**31 - 1) for every dropout site of the layer;
-else the plain sub-blocks with the counter-hash ``dropout`` at the
-reference's sites (attention probabilities, attention output, FFN output),
-one key per site. The embedding output is dropped in training mode too. The
-pooler is not ported. ``BertLayer`` and ``BertModel`` start in eval mode,
-the deterministic forward; ``.train()`` turns the training forward on.
+caller's generator in [0, 2**31 - 1) for every dropout site of the layer,
+and the caller's span hook (``span``, the model's ``Realise.span`` at
+forward time), which brackets their backwards as 'encoder.attn_bwd' and
+'encoder.ffn_bwd'; else the plain sub-blocks with the counter-hash
+``dropout`` at the reference's sites (attention probabilities, attention
+output, FFN output), one key per site. The embedding output is dropped in
+training mode too. The pooler is not ported. ``BertLayer`` and
+``BertModel`` start in eval mode, the deterministic forward; ``.train()``
+turns the training forward on.
 
 Tensor parallelism (``parallel/tensor.shard_module`` sets ``tp``, the
 rank's ``MeshGroups``, on every stack and layer): a layer holds its rank's
@@ -56,6 +59,7 @@ from realise_tpu_torch.ops.layers import (
     stream_value,
 )
 from realise_tpu_torch.parallel.tensor import copy_to_model, reduce_from_model
+from realise_tpu_torch.utils.profiler import no_span
 
 KeyPair = Tuple[int, int]
 
@@ -250,7 +254,8 @@ class BertLayer(nn.Module):
 
     def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor,
                 use_kernels: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                span=no_span) -> torch.Tensor:
         cfg = self.cfg
         if self.tp is not None and use_kernels:
             raise ValueError("a tensor-parallel layer runs the plain "
@@ -258,7 +263,7 @@ class BertLayer(nn.Module):
                              "hidden dim")
         if self.training:
             return self._train_forward(hidden, attn_bias, use_kernels,
-                                       generator)
+                                       generator, span)
         if use_kernels:
             p_att, p_ffn = self.kernel_params(hidden.dtype)
             hidden = bert_block.attention_block(
@@ -269,7 +274,8 @@ class BertLayer(nn.Module):
                                  tp=self.tp)
         return _ffn(self, hidden, cfg, tp=self.tp)
 
-    def _train_forward(self, hidden, attn_bias, use_kernels, generator):
+    def _train_forward(self, hidden, attn_bias, use_kernels, generator,
+                       span):
         cfg = self.cfg
         p_rate = cfg.attention_probs_dropout_prob
         h_rate = cfg.hidden_dropout_prob
@@ -278,9 +284,9 @@ class BertLayer(nn.Module):
             p_att, p_ffn = self.train_params()
             hidden = bert_block_train.attention_block_train(
                 hidden, p_att, attn_bias, seed, cfg.num_attention_heads,
-                cfg.layer_norm_eps, p_rate, h_rate)
+                cfg.layer_norm_eps, p_rate, h_rate, span=span)
             return bert_block_train.ffn_block_train(
-                hidden, p_ffn, seed, cfg.layer_norm_eps, h_rate)
+                hidden, p_ffn, seed, cfg.layer_norm_eps, h_rate, span=span)
         gen = _generator_for(generator, p_rate, h_rate)
         keys = (None if gen is None else
                 (random_key(gen), random_key(gen), random_key(gen)))
@@ -341,9 +347,11 @@ class BertModel(nn.Module):
                 position_ids: Optional[torch.Tensor] = None,
                 token_type_ids: Optional[torch.Tensor] = None,
                 use_kernels: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                span=no_span) -> torch.Tensor:
         """``generator`` (training mode): the host generator every dropout
-        key and layer seed of this stack is drawn from."""
+        key and layer seed of this stack is drawn from. ``span``: the span
+        hook each layer hands its train kernels."""
         cfg = self.cfg
         hidden = self.embedding_output(input_ids, inputs_embeds,
                                        position_ids, token_type_ids)
@@ -363,5 +371,5 @@ class BertModel(nn.Module):
             attn_bias = attn_bias.reshape(hidden.shape[:2]).float()
         for layer in self.encoder.layer:
             hidden = layer(hidden, attn_bias, use_kernels=use_kernels,
-                           generator=generator)
+                           generator=generator, span=span)
         return hidden

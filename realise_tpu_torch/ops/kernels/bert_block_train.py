@@ -19,6 +19,11 @@ runs one product of the two backward kernels alone (their Hopper GEMM,
 forward blocks (serving and training, and the backward's replays of them),
 and :func:`attention_core` the attention core alone.
 
+Each Function keeps the span hook it was given in the forward (``span``,
+the model's ``Realise.span`` at that time) and brackets its backward in
+``span('encoder.attn_bwd')`` or ``span('encoder.ffn_bwd')``; the autograd
+engine runs it on its own thread, on the forward's stream.
+
 For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel (CUDA C++ for sm_90a, ``csrc/bert_block_train.cu``) or
 raises. Parameters arrive as the live ``nn.Parameter``s (torch (out, in)
@@ -60,6 +65,7 @@ from realise_tpu_torch.ops.kernels.bert_block import (
     attention_probs,
 )
 from realise_tpu_torch.ops.layers import M32, dense, layer_norm, mix32, mul32
+from realise_tpu_torch.utils.profiler import no_span
 
 SITE_PROBS, SITE_ATTN_OUT, SITE_FFN_OUT = 1, 2, 3
 # Epilogues of the forward products (csrc/bert_block_common.cuh EPI_*):
@@ -680,68 +686,74 @@ KERNEL_WRAPPERS = (attention_train_forward, attention_train_backward,
 class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mask_bias, seed, num_heads, eps, p_rate, h_rate,
-                *params):
+                span, *params):
         x = x.contiguous()
         y = attention_train_forward(x, pack_attention(params, x.dtype),
                                     mask_bias, seed, num_heads, eps, p_rate,
                                     h_rate)
         ctx.save_for_backward(x, mask_bias, *params)
         ctx.args = (seed, num_heads, eps, p_rate, h_rate)
+        ctx.span = span
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, mask_bias, *params = ctx.saved_tensors
-        seed, num_heads, eps, p_rate, h_rate = ctx.args
-        dx, g = attention_train_backward(
-            x, dy.contiguous(), pack_attention(params, x.dtype), mask_bias,
-            seed, num_heads, eps, p_rate, h_rate)
-        h = x.shape[-1]
-        dwq, dwk, dwv = g["qkv_weight"].split(h)
-        dbq, dbk, dbv = g["qkv_bias"].split(h)
-        return (dx, None, None, None, None, None, None,
+        with ctx.span("encoder.attn_bwd"):
+            x, mask_bias, *params = ctx.saved_tensors
+            seed, num_heads, eps, p_rate, h_rate = ctx.args
+            dx, g = attention_train_backward(
+                x, dy.contiguous(), pack_attention(params, x.dtype),
+                mask_bias, seed, num_heads, eps, p_rate, h_rate)
+            h = x.shape[-1]
+            dwq, dwk, dwv = g["qkv_weight"].split(h)
+            dbq, dbk, dbv = g["qkv_bias"].split(h)
+        return (dx, None, None, None, None, None, None, None,
                 dwq, dbq, dwk, dbk, dwv, dbv, g["out_weight"], g["out_bias"],
                 g["ln_weight"], g["ln_bias"])
 
 
 class _FfnTrain(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, seed, eps, h_rate, *params):
+    def forward(ctx, x, seed, eps, h_rate, span, *params):
         x = x.contiguous()
         y, z = ffn_train_forward(x, pack_ffn(params, x.dtype), seed, eps,
                                  h_rate)
         ctx.save_for_backward(x, z, *params)
         ctx.args = (seed, eps, h_rate)
+        ctx.span = span
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, z, *params = ctx.saved_tensors
-        seed, eps, h_rate = ctx.args
-        dx, g = ffn_train_backward(x, z, dy.contiguous(),
-                                   pack_ffn(params, x.dtype), seed, eps,
-                                   h_rate)
-        return (dx, None, None, None, g["w1"], g["b1"], g["w2"], g["b2"],
-                g["ln_weight"], g["ln_bias"])
+        with ctx.span("encoder.ffn_bwd"):
+            x, z, *params = ctx.saved_tensors
+            seed, eps, h_rate = ctx.args
+            dx, g = ffn_train_backward(x, z, dy.contiguous(),
+                                       pack_ffn(params, x.dtype), seed, eps,
+                                       h_rate)
+        return (dx, None, None, None, None, g["w1"], g["b1"], g["w2"],
+                g["b2"], g["ln_weight"], g["ln_bias"])
 
 
 def attention_block_train(x: torch.Tensor, params: Dict[str, torch.Tensor],
                           mask_bias: torch.Tensor, seed: int, num_heads: int,
                           eps: float = 1e-12, p_rate: float = 0.0,
-                          h_rate: float = 0.0) -> torch.Tensor:
+                          h_rate: float = 0.0, span=no_span) -> torch.Tensor:
     """Differentiable fused attention sub-block with in-kernel dropout.
 
     x: (B, S, H); params: the ATTN_PARAMS tensors by name; mask_bias: (B, S)
     additive float32 bias; seed: int in [0, 2**31) driving every dropout
-    site of the layer (p_rate: probabilities, h_rate: output)."""
+    site of the layer (p_rate: probabilities, h_rate: output); span: the
+    span hook whose 'encoder.attn_bwd' brackets the backward."""
     return _AttentionTrain.apply(x, mask_bias, int(seed), num_heads, eps,
-                                 p_rate, h_rate,
+                                 p_rate, h_rate, span,
                                  *(params[k] for k in ATTN_PARAMS))
 
 
 def ffn_block_train(x: torch.Tensor, params: Dict[str, torch.Tensor],
                     seed: int, eps: float = 1e-12,
-                    h_rate: float = 0.0) -> torch.Tensor:
-    """Differentiable fused FFN sub-block with in-kernel output dropout."""
-    return _FfnTrain.apply(x, int(seed), eps, h_rate,
+                    h_rate: float = 0.0, span=no_span) -> torch.Tensor:
+    """Differentiable fused FFN sub-block with in-kernel output dropout;
+    ``span``'s 'encoder.ffn_bwd' brackets the backward."""
+    return _FfnTrain.apply(x, int(seed), eps, h_rate, span,
                            *(params[k] for k in FFN_PARAMS))

@@ -92,6 +92,21 @@ tensors (the AdamW moments too) over the model group, and loading slices
 them again: a checkpoint holds the unsplit weights whatever the mesh. A
 model with nothing to split (``res-pretrain``) trains as on the data axis
 alone, each model rank a copy.
+
+Spans: the loop brackets every phase through the model's span hook
+(``Realise.span``, default ``no_span``, read where each span opens; a
+``utils/profiler.SpanRecorder`` times them): ``fit`` the wait for each
+batch ('input') and the logging and saving steps ('log', 'save');
+``train_step`` the learning-rate set, ``model.train()`` and ``zero_grad``
+('prep'), the split, the glyph-row count and the copies to the device
+('upload'), the forward (the model's spans), 'backward' (the encoder's
+'encoder.attn_bwd' and 'encoder.ffn_bwd' inside it on the kernel path),
+the release of the last microbatch's autograd graph and the unused
+parameters' zero gradients ('grads'), 'all-reduce', 'clip+adamw' and, on a
+data axis alone, 'running-stats'. Between one batch and the next only
+single statements run outside them (with ``grad_accum_steps`` above 1, an
+earlier microbatch's graph is released where the next one's output takes
+its name).
 """
 
 from __future__ import annotations
@@ -251,15 +266,18 @@ class Trainer:
         CPU tensors); returns the batch's mean loss as a 0-d device tensor
         (no sync)."""
         self._eval_tables = None  # the weights change
-        lr = self.schedule(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = lr
         span = self.model.span
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        loss_sum = torch.zeros((), device=self.device)
-        count = torch.zeros((), device=self.device)
-        for mb in self._microbatches(device_batch):
+        with span("prep"):
+            lr = self.schedule(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            loss_sum = torch.zeros((), device=self.device)
+            count = torch.zeros((), device=self.device)
+        with span("upload"):
+            microbatches = self._microbatches(device_batch)
+        for mb in microbatches:
             out = self.model(mb, use_kernels=self.use_kernels,
                              generator=self.generator,
                              per_token=self.per_token_streams)
@@ -267,11 +285,16 @@ class Trainer:
                 out["loss_sum"].backward()
             loss_sum += out["loss_sum"].detach()
             count += out["loss_count"].detach()
-        grads = []
-        for p in self.model.parameters():
-            if p.grad is None:  # unused this step: a zero gradient, as in JAX
-                p.grad = torch.zeros_like(p)
-            grads.append(p.grad)
+        with span("grads"):
+            # The last microbatch's autograd graph is released here, inside
+            # a span, and not at the return: freeing its nodes is host work
+            # that grows with the model's layers.
+            del out
+            grads = []
+            for p in self.model.parameters():
+                if p.grad is None:  # unused this step: a zero one, as in JAX
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
         if self.data_group is not None:
             with span("all-reduce"):
                 self.all_reduce_sum([loss_sum, count] + grads)
@@ -285,7 +308,8 @@ class Trainer:
                     self.groups.model_group if self.tensor_parallel else None)
             self.optimizer.step()
         if self.data_group is not None and not self.tensor_parallel:
-            self._average_running_stats()
+            with span("running-stats"):
+                self._average_running_stats()
         self.step += 1
         return loss_sum / denom
 
@@ -459,7 +483,8 @@ class Trainer:
         batches = iter(batches)
         # A run that has reached max_steps (a resumed one) takes no batch.
         while max_steps is None or self.step < max_steps:
-            batch = next(batches, None)
+            with self.model.span("input"):
+                batch = next(batches, None)
             if batch is None:
                 break
             with timer:
@@ -467,13 +492,15 @@ class Trainer:
             count += 1
             step = self.step
             if logging_steps and step % logging_steps == 0:
-                last_loss = float(loss)
-                rec = {"step": step, "loss": last_loss,
-                       "lr": self.schedule(step),
-                       "steps_per_sec": count / (time.time() - t0)}
-                (log_fn or (lambda r: logger.info("%s", r)))(rec)
+                with self.model.span("log"):
+                    last_loss = float(loss)
+                    rec = {"step": step, "loss": last_loss,
+                           "lr": self.schedule(step),
+                           "steps_per_sec": count / (time.time() - t0)}
+                    (log_fn or (lambda r: logger.info("%s", r)))(rec)
             if save_steps and save_fn and step % save_steps == 0:
-                save_fn(step, self)
+                with self.model.span("save"):
+                    save_fn(step, self)
         if loss is not None:
             last_loss = float(loss)
         wall = time.time() - t0

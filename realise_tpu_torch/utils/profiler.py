@@ -7,6 +7,9 @@
   into a directory as a Chrome trace file (``*.pt.trace.json``) that
   Perfetto and TensorBoard's profiler plugin read; ``cli/train
   --trace_dir`` wraps its first ``--trace_steps`` steps in it.
+* :class:`SpanRecorder`: the named phases of a step (the model's
+  ``span`` hook, default :func:`no_span`), each timed by a CUDA event pair
+  and the host clock and marked in any profiler trace.
 """
 
 from __future__ import annotations
@@ -18,6 +21,65 @@ import time
 from typing import Dict, Iterator, List, Optional
 
 import torch
+
+
+def no_span(name: str):
+    """The default span hook (``Realise.span``): brackets nothing."""
+    return contextlib.nullcontext()
+
+
+class SpanRecorder:
+    """Named spans of the program's phases: install :meth:`span` as the
+    model's hook (``model.span = recorder.span``), read :meth:`totals`.
+
+    Each span opens a ``torch.profiler.record_function`` range, so it shows
+    in any profiler trace on the trace's clock, around the kernels it
+    launched; notes the host clock; and, on a CUDA device, records a CUDA
+    event pair on the current stream. A span's device time is the card's
+    time from the first event to the second: the work the span queued, and
+    for a phase that runs on the host alone the time the card stalled on
+    it (about 0 where queued work hid it). Spans nest. The encoder's
+    backward spans run on the autograd engine's thread: each span is one
+    ``list.append``, which the interpreter lock keeps whole."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+        self._records: List[tuple] = []  # (name, host ns, start, end)
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        start = end = None
+        with torch.profiler.record_function(name):
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter_ns()
+            try:
+                yield
+            finally:
+                host_ns = time.perf_counter_ns() - t0
+                if end is not None:
+                    end.record()
+                self._records.append((name, host_ns, start, end))
+
+    def totals(self) -> Dict[str, Dict[str, float]]:
+        """{name: {'count', 'device_ms', 'host_ms'}} summed over the spans
+        recorded so far; waits for the card once. On the CPU there is no
+        ``device_ms``."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        out: Dict[str, Dict[str, float]] = {}
+        for name, host_ns, start, end in list(self._records):
+            t = out.setdefault(name, dict(count=0, host_ms=0.0,
+                                          **({"device_ms": 0.0} if cuda
+                                             else {})))
+            t["count"] += 1
+            t["host_ms"] += host_ns * 1e-6
+            if cuda:
+                t["device_ms"] += start.elapsed_time(end)
+        return out
 
 
 @contextlib.contextmanager

@@ -22,6 +22,8 @@ from realise_tpu_torch.ops import bert as tbert
 from realise_tpu_torch.ops.kernels import bert_block as tbb
 from realise_tpu_torch.ops.kernels import bert_block_train as tbt
 from realise_tpu_torch.training.checkpoint import save_checkpoint
+from realise_tpu_torch.training.trainer import Trainer
+from realise_tpu_torch.utils.profiler import SpanRecorder
 
 pytestmark = pytest.mark.cuda
 
@@ -502,3 +504,54 @@ def test_attention_forward_equals_the_replay_bit_for_bit(cuda_device, m):
     torch.cuda.synchronize()
     for k in ("qkv", "ctx", "z32"):
         assert torch.equal(fwd[k], bwd[k]), k
+
+
+@pytest.mark.parametrize("preset,layers", [("bert-pho2-res-arch3", 19),
+                                           ("bert", 12)])
+def test_train_step_spans_each_encoder_backward(cuda_device, monkeypatch,
+                                                preset, layers):
+    """A bf16 kernel step of the Trainer at the presets' layer counts
+    records one 'encoder.attn_bwd' and one 'encoder.ffn_bwd' span per
+    encoder layer (arch3 12 + 4 + 3, bert 12), on the autograd engine's
+    thread, each with device time; its gradients and weights are those of
+    the same step without spans, bit for bit. cuDNN's float32 weight
+    gradients of the glyph convolutions differ from call to call (see
+    test_pretraining_kernel_path_matches_plain_path), so both steps take
+    its deterministic algorithms."""
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = config_for(preset, vocab_size=300, hidden_size=128,
+                     num_attention_heads=2, intermediate_size=256,
+                     num_fonts=1, dtype="bfloat16")
+    rng = np.random.RandomState(4)
+    b, s = 4, 37
+    masks = np.ones((b, s), np.int64)
+    masks[1, 20:] = 0
+    batch = {"src_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "tgt_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "masks": masks, "loss_masks": masks.copy(),
+             "pho_idx": rng.randint(1, 30, (b, s, cfg.pho2_max_len)),
+             "pho_lens": rng.randint(0, cfg.pho2_max_len + 1, (b, s))}
+
+    def trainer():
+        gen = torch.Generator().manual_seed(0)
+        model = Realise(cfg, generator=gen)
+        if cfg.with_res:
+            model.install_glyphs((torch.rand(
+                model.char_images_multifonts.shape, generator=gen) < 0.5
+            ).float())
+        return Trainer(cfg, model, use_kernels=True, device=cuda_device,
+                       seed=5)
+
+    plain, traced = trainer(), trainer()
+    rec = SpanRecorder(cuda_device)
+    traced.model.span = rec.span
+    plain.train_step(batch)
+    traced.train_step(batch)
+    totals = rec.totals()
+    for name in ("encoder.attn_bwd", "encoder.ffn_bwd"):
+        assert totals[name]["count"] == layers, name
+        assert totals[name]["device_ms"] > 0, name
+    for (name, p), q in zip(plain.model.named_parameters(),
+                            traced.model.parameters()):
+        assert torch.equal(p.grad, q.grad), name
+        assert torch.equal(p, q), name

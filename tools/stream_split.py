@@ -10,10 +10,13 @@ batches of ``chip_smoke.py``'s training phase), the fused train kernels on.
 For each path (``per_token``: both streams over every token slot;
 ``factorized``: over the distinct rows, as the Trainer runs them) and
 B = 32 and 256: a warm-up step, then one step with CUDA events around each
-part of it (``chip_smoke.step_split``: the semantic BERT, the glyph gather +
-CharResNet + LayerNorm, the GRU, the pho BERT, the fusion + output block, the
-head + CE forward, the backward, the clip + AdamW), then one under the
-profiler for its kernel time, and the peak memory. Needs a CUDA card.
+part of it (``chip_smoke.step_split`` over the port's
+``utils/profiler.SpanRecorder``: the step's preamble and upload, the
+semantic BERT, the glyph gather + CharResNet + LayerNorm, the GRU, the pho
+BERT, the fusion + output block, the head + CE forward, the backward with
+the encoder layers' attention and FFN backwards inside it, the unused
+parameters' zero gradients, the clip + AdamW), then one under the profiler
+for its kernel time, and the peak memory. Needs a CUDA card.
 """
 
 from __future__ import annotations

@@ -72,8 +72,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    featurized at bucket 128, ``realise_tpu_torch.training.Trainer`` on the
    card on the factorized streams for 1 + 5 steps at B=32 and 2 steps at
    B=256, then one more B=256 step under the profiler (device time by
-   kernel name); every loss must be finite and every encoder layer must have
-   gone through the four train kernels each step; then the split of a B=32
+   kernel name); every loss must be finite, every encoder layer must have
+   gone through the four train kernels each step and every step through
+   the two update kernels once each; then the split of a B=32
    and a B=256 step by stream (CUDA events around each part) on the
    factorized and on the per-token path, with kernel time, host clock and
    peak memory; then, in float32 at dropout 0 on one B=32 batch, the kernel
@@ -97,6 +98,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    tests/test_convergence.py's recipe on the card through the kernels
    (held-out sent-correct-F1 and sent-detect-F1 above 50). The CLI run and
    the convergence run join the kernels' launch record;
+8c. (run after phase 7) the update kernels (``csrc/adamw.cu``, the
+   division, the global-norm clip and AdamW in two launches; they replace
+   no ``pallas_call``) over arch3's and bert's full-width parameters: one
+   clipped step at ``UPDATE_LR`` within ``UPDATE_REL`` of the plain path
+   (which torch's AdamW without the decay must miss), two launches a
+   step, and the time of both kernels, of the norm alone, of the plain path
+   and of torch's fused AdamW (a yardstick) against 32 bytes an element;
 9. eval and scoring: the trained model saved as a port checkpoint, loaded
    as ``cli/test`` loads it and scored by ``cli.common.evaluate_model`` on
    1024 synthetic sentences in batches of 32 with the serving kernels
@@ -1050,6 +1058,160 @@ def time_train_kernels(device, gen, card):
     return rows
 
 
+# ------------------------------------------------------- update kernels
+# Phase 8c: the update kernels against the plain path after one clipped
+# step, each parameter and moment within this much of its tensor's largest
+# value (float32; the norm's sums are taken in another order and the
+# kernel's arithmetic is FMA-contracted). The step's lr and decay: the
+# decay moves a decayed parameter by lr * wd = 2e-5 of its value, 20 times
+# the limit, so a kernel that left it out would fail.
+UPDATE_REL = 1e-6
+UPDATE_LR, UPDATE_WD = 2e-3, 0.01
+
+
+def update_kernels(device, card):
+    """Phase 8c: ``csrc/adamw.cu`` over arch3's and bert's full-width
+    parameter sets, gradient sums over 6000 tokens, clipped at 1.0: one step
+    against the plain path (the division, ``clip_by_global_norm``,
+    ``torch.optim.AdamW``) from the same state, two launches a step, and
+    the plain path without the decay as a control that the comparison must
+    see as wrong; then
+    the times (CUDA events, 20 calls, L2 flushed) of both kernels, of the
+    norm kernel alone, of the plain path and of one library yardstick the
+    port never calls (``torch.nn.utils.clip_grad_norm_`` and AdamW with
+    ``fused=True``), against the bound of 32 bytes an element. Returns the
+    arch3 row."""
+    import copy
+
+    import torch
+
+    from realise_tpu_torch.config import config_for
+    from realise_tpu_torch.models.realise import build_model
+    from realise_tpu_torch.ops.kernels import adamw as kadamw
+    from realise_tpu_torch.training.optim import (clip_by_global_norm,
+                                                  make_optimizer)
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    count = torch.tensor(6000.0, device=device)
+    row = {}
+    for preset in (ARCH3, "bert"):
+        model = build_model(config_for(preset, vocab_size=21128),
+                            generator=torch.Generator().manual_seed(SEED + 40))
+        model = model.to(device)
+        models = {k: copy.deepcopy(model) for k in ("kernel", "plain",
+                                                      "library", "no_decay")}
+        del model
+        opts = {k: make_optimizer(m, UPDATE_LR, UPDATE_WD)
+                for k, m in models.items()}
+        for k in ("plain", "library", "no_decay"):
+            opts[k] = torch.optim.AdamW(
+                [dict(g, params=list(g["params"]),
+                      weight_decay=0.0 if k == "no_decay"
+                      else g["weight_decay"])
+                 for g in opts[k].param_groups], fused=k == "library")
+        params = {k: [p for g in o.param_groups for p in g["params"]]
+                  for k, o in opts.items()}
+        gen = torch.Generator(device=device).manual_seed(SEED + 41)
+        sums = [torch.randn(p.shape, generator=gen, device=device) * 40
+                for p in params["kernel"]]
+        # The plain path divides and clips its gradients in place: its own.
+        grads = {k: [t.clone() for t in sums]
+                 for k in ("plain", "library", "no_decay")}
+
+        def kernel(clip_only=False):
+            for p, s in zip(params["kernel"], sums):
+                p.grad = s
+            opts["kernel"].clip(count, 1.0)
+            if not clip_only:
+                opts["kernel"].step()
+
+        def plain(key="plain"):
+            for p, g in zip(params[key], grads[key]):
+                p.grad = g
+            if key != "library":
+                denom = torch.clamp(count, min=1.0)
+                for g in grads[key]:
+                    g.div_(denom)
+                clip_by_global_norm(grads[key], 1.0)
+            else:
+                torch._foreach_div_(grads[key], torch.clamp(count, min=1.0))
+                torch.nn.utils.clip_grad_norm_(params[key], 1.0,
+                                               foreach=True)
+            opts[key].step()
+
+        before = kadamw.global_norm_partials.launches + \
+            kadamw.adamw_update.launches
+        kernel()
+        launches = (kadamw.global_norm_partials.launches
+                    + kadamw.adamw_update.launches - before)
+        plain()
+        plain("no_decay")
+        torch.cuda.synchronize()
+
+        def worst_of(key):
+            worst = 0.0
+            for p, q in zip(params[key], params["plain"]):
+                pairs = [(p, q)] + [(opts[key].state[p][k],
+                                     opts["plain"].state[q][k])
+                                    for k in ("exp_avg", "exp_avg_sq")]
+                for a, b in pairs:
+                    worst = max(worst, ((a - b).abs().max() / b.abs().max()
+                                        .clamp_min(1e-30)).item())
+            return worst
+
+        worst, control = worst_of("kernel"), worst_of("no_decay")
+        n = sum(p.numel() for p in params["kernel"])
+        # The kernels alone, their tables and pointers made beforehand (the
+        # optimizer's call adds its host work: the checks and pointers of
+        # every gradient, which the card hides only behind queued work).
+        state = opts["kernel"].state
+        tables = kadamw.Tables(
+            params["kernel"], [state[p]["exp_avg"] for p in params["kernel"]],
+            [state[p]["exp_avg_sq"] for p in params["kernel"]],
+            [gi for gi, g in enumerate(opts["kernel"].param_groups)
+             for _ in g["params"]])
+        ptrs = tables.gradient_pointers(sums)
+        scalars = [kadamw.group_scalars(UPDATE_LR, (0.9, 0.999), 1e-8, g[
+            "weight_decay"], 2) for g in opts["kernel"].param_groups]
+        norm_out = torch.empty((), device=device)
+
+        def kernels(norm_only=False):
+            kadamw.global_norm_partials(tables, ptrs)
+            if not norm_only:
+                kadamw.adamw_update(tables, ptrs, count, 1.0, scalars,
+                                    norm_out)
+
+        ms = time_ms(kernels, flush)
+        norm_ms = time_ms(lambda: kernels(norm_only=True), flush)
+        call_ms = time_ms(kernel, flush)
+        plain_ms = time_ms(plain, flush)
+        library_ms = time_ms(lambda: plain("library"), flush)
+        bound_ms = 1e3 * 32 * n / PEAK_BYTES
+        log(f"update kernels {preset}: {len(params['kernel'])} tensors, "
+            f"{n} elements, {launches} launches a step; both kernels "
+            f"{ms:.4f} ms (norm {norm_ms:.4f} ms, its bound "
+            f"{1e3 * 4 * n / PEAK_BYTES:.4f} ms), bound {bound_ms:.4f} ms "
+            f"(bytes, 32 B an element at {PEAK_BYTES / 1e12:.2f} TB/s; "
+            f"kernels at {bound_ms / ms:.1%} of it); the optimizer's "
+            f"clip+step {call_ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{library_ms:.4f} ms; worst relative |kernel-plain| "
+            f"{worst:.2e} (tol {UPDATE_REL}; the plain path without the "
+            f"decay {control:.2e}) [{card}]")
+        if launches != 2 or worst > UPDATE_REL:
+            fail(f"update kernels {preset}: {launches} launches, worst "
+                 f"relative error {worst:.2e}")
+        if control <= UPDATE_REL:
+            fail(f"update kernels {preset}: the plain path without the decay "
+                 f"reads {control:.2e}, within the limit {UPDATE_REL}")
+        if preset == ARCH3:
+            row = dict(max_rel_err=worst, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by="bytes",
+                       library_ms=library_ms, call_ms=call_ms)
+        del models, opts, params, sums, grads, tables, ptrs
+        torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------- featurizer, daemon
 def check_featurizer(native_corrector, requests, card):
     """Phase 5b: the native and the Python ``featurize_raw`` give the same
@@ -1515,11 +1677,13 @@ def train(device, cfg, card):
     """Phase 8: the Trainer at full width in bf16 on the factorized streams;
     then the per-stream split of a B=32 and a B=256 step on the factorized
     and on the per-token path. Returns (the launches of the train kernels
-    over the main run, the trainer)."""
+    and of the update kernels (``clip_adamw``, the two together) over the
+    main run, the trainer)."""
     import math
 
     import torch
 
+    from realise_tpu_torch.ops.kernels import adamw as kadamw
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
     from realise_tpu_torch.training.trainer import Trainer
 
@@ -1542,28 +1706,35 @@ def train(device, cfg, card):
         f"{cfg.vocab_size} tokens")
     if not trainer.use_kernels:
         fail("the Trainer did not turn the kernels on for CUDA")
-    for fn in tbt.KERNEL_WRAPPERS:
+    updates = (kadamw.global_norm_partials, kadamw.adamw_update)
+    for fn in tuple(tbt.KERNEL_WRAPPERS) + updates:
         fn.launches = 0
     for b, batches in ((32, small), (256, large)):
         torch.cuda.reset_peak_memory_stats(device)
         times = []
         for i, batch in enumerate(batches):
             before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+            before_update = [fn.launches for fn in updates]
             sync(device)
             t = time.perf_counter()
             loss = float(trainer.train_step(batch))  # reads back: synchronised
             dt = time.perf_counter() - t
             per_step = [fn.launches - n for fn, n in zip(tbt.KERNEL_WRAPPERS,
                                                          before)]
+            per_update = [fn.launches - n for fn, n in zip(updates,
+                                                           before_update)]
             warm = b == 32 and i == 0
             log(f"train: B={b} step {trainer.step}{' (warm-up)' if warm else ''}"
                 f": loss {loss:.6f}, {1e3 * dt:.3f} ms, {b / dt:.1f} sentences/s,"
-                f" launches {per_step}")
+                f" launches {per_step}, update {per_update}")
             if not math.isfinite(loss):
                 fail(f"non-finite loss at step {trainer.step}")
             if per_step != [layers] * 4:
                 fail(f"train kernels launched {per_step} times in a step, "
                      f"expected {layers} each")
+            if per_update != [1, 1]:
+                fail(f"update kernels launched {per_update} times in a step, "
+                     f"expected once each")
             if not warm:
                 times.append(dt)
         peak = torch.cuda.max_memory_allocated(device)
@@ -1574,14 +1745,14 @@ def train(device, cfg, card):
     # Where a B=256 step's time goes: device time by kernel name over one
     # profiled step (after the profiler's warm-up step; both are steps of
     # the run, checked like the others).
-    before = [fn.launches for fn in tbt.KERNEL_WRAPPERS]
+    before = [fn.launches for fn in tuple(tbt.KERNEL_WRAPPERS) + updates]
     t = time.perf_counter()
     parts = kernel_breakdown(lambda: trainer.train_step(large[-1]),
                              "train step B=256", iters=1)
     dt = (time.perf_counter() - t) / 2
-    if [fn.launches - n for fn, n in zip(tbt.KERNEL_WRAPPERS, before)] != \
-            [2 * layers] * 4:
-        fail("the profiled steps missed a train kernel launch")
+    if [fn.launches - n for fn, n in zip(tuple(tbt.KERNEL_WRAPPERS) + updates,
+                                         before)] != [2 * layers] * 4 + [2, 2]:
+        fail("the profiled steps missed a train or update kernel launch")
     busy = sum(ms for ms, _ in parts)
     log(f"train: profiled B=256 step: {busy:.3f} ms of kernels in "
         f"{1e3 * dt:.3f} ms on the host clock (profiler on), "
@@ -1589,6 +1760,7 @@ def train(device, cfg, card):
     for part_ms, kname in parts[:16]:
         log(f"  profile train step: {part_ms:.4f} ms {kname[:100]}")
     launches = {fn.__name__: fn.launches for fn in tbt.KERNEL_WRAPPERS}
+    launches["clip_adamw"] = sum(fn.launches for fn in updates)
 
     # The split of a step by stream, CUDA events around each part, on the
     # factorized path and on the per-token one, same model and batches.
@@ -3397,8 +3569,11 @@ def dp_rank(rank, work, device_type="cuda"):
                 reference, batch, device, DP_RANKS)
             floor = 1e-4 * max(g.abs().max().item()
                                for g in want_grads.values())
+            # The gradient as AdamW took it: its first moment after one
+            # step over 0.1 (on the card p.grad stays the rank's sum).
+            state = tr.optimizer.state
             grad_err = max(
-                (p.grad - want_grads[n]).abs().max().item()
+                (state[p]["exp_avg"] / 0.1 - want_grads[n]).abs().max().item()
                 / max(want_grads[n].abs().max().item(), floor)
                 for n, p in tr.model.named_parameters())
             got_stats = bn_state(tr.model)
@@ -3857,22 +4032,32 @@ class ModelReduces:
 
 @contextlib.contextmanager
 def recorded_norms():
-    """The norms the Trainer's clip returns, in order."""
+    """The norms the Trainer's clip returns, in order: the plain path's
+    (``clip_by_global_norm``) and the kernel path's (``AdamW.clip``, a 0-d
+    tensor that its step fills), as tensors: read each after its step."""
+    from realise_tpu_torch.training import optim
     from realise_tpu_torch.training import trainer as trainer_module
 
     norms = []
-    clip = trainer_module.clip_by_global_norm
+    clip, kernel_clip = trainer_module.clip_by_global_norm, optim.AdamW.clip
 
     def recording(*a, **kw):
         norm = clip(*a, **kw)
-        norms.append(float(norm))
+        norms.append(norm)
+        return norm
+
+    def kernel_recording(self, *a, **kw):
+        norm = kernel_clip(self, *a, **kw)
+        norms.append(norm)
         return norm
 
     trainer_module.clip_by_global_norm = recording
+    optim.AdamW.clip = kernel_recording
     try:
         yield norms
     finally:
         trainer_module.clip_by_global_norm = clip
+        optim.AdamW.clip = kernel_clip
 
 
 @contextlib.contextmanager
@@ -4010,7 +4195,7 @@ def tp_step_check(mesh, rank, cfg, batch, device, second=None, work=None):
             fail(f"tensor parallel: a trainer under {mesh} has kernels "
                  f"{tr.use_kernels}, split {tr.tensor_parallel}")
         loss = float(tr.train_step(mine(batch)))
-        norm = norms[-1]
+        norm = float(norms[-1])
         grads = gathered_grads(tr)
         weights = {k: v.clone() for k, v in tr.model_state_dict().items()}
         stats = bn_state(tr.model)
@@ -4025,7 +4210,7 @@ def tp_step_check(mesh, rank, cfg, batch, device, second=None, work=None):
             alone = MeshGroups(make_mesh({"data": 1}, world_size=1))
             ref = Trainer(cfg, reference, mesh=alone, use_kernels=False, **kw)
             want_loss = float(ref.train_step(batch))
-            want_norm = norms[-1]
+            want_norm = float(norms[-1])
             want_grads = {n_: p.grad for n_, p in
                           ref.model.named_parameters()}
             floor = 1e-4 * max(g.abs().max().item()
@@ -4405,7 +4590,8 @@ def main() -> int:
     t = time.perf_counter()
     # One compiler each, together: nvcc for the kernels, g++ for the
     # featurizer.
-    logs = build(["bert_block", "bert_block_train", "realise_featurizer"])
+    logs = build(["bert_block", "bert_block_train", "adamw",
+                  "realise_featurizer"])
     log(f"build: {time.perf_counter() - t:.2f} s")
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -4426,6 +4612,7 @@ def main() -> int:
     worst_train = check_train_kernels(device, gen)
     rows.update(time_train_kernels(device, gen, card))
     time_backward_gemm(device, gen, card)
+    update_row = update_kernels(device, card)
     train_launches, trainer = train(device, cfg, card)
     launches.update(train_launches)
     check_train_paths(device, cfg)
@@ -4474,6 +4661,10 @@ def main() -> int:
                             "realise_tpu_torch/csrc/bert_block_train.cu"),
                     replaces=src, launches=launches[name], **rows[name])
                for name, src in sources.items()]
+    kernels.append(dict(name="clip_adamw", route="cuda",
+                        source="realise_tpu_torch/csrc/adamw.cu",
+                        replaces=None, launches=launches["clip_adamw"],
+                        **update_row))
     log("worst |kernel-plain| over the checks: " + ", ".join(
         f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst.items())))
     log("worst relative |kernel-plain| of the train kernels: " + ", ".join(

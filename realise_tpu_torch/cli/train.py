@@ -22,8 +22,9 @@ ending with a short one of its own. ``--trace_dir`` writes a
 ``torch.profiler`` trace of the first ``--trace_steps`` steps (the host
 and, on CUDA, every kernel, with the step's spans as named ranges) and
 logs each span's count, device ms and host ms a step
-(``utils/profiler.SpanRecorder``), then the same stream goes on untraced,
-without spans.
+(``utils/profiler.SpanRecorder``) and the update kernels' launches,
+tensors and elements (none on the CPU), then the same stream goes on
+untraced, without spans.
 ``--init_ckpt`` starts from a checkpoint's
 weights with a fresh optimizer at step 0 (a ``cli/merge`` checkpoint, the
 reference's recipe); ``--pho_ckpt``/``--res_ckpt`` then overlay the
@@ -287,15 +288,19 @@ def main(argv=None) -> int:
                 # untraced: fit holds no batch back, so step k still trains
                 # on batch k. The kernels are built and loaded first, so
                 # the trace holds steps and not the compiler.
+                from realise_tpu_torch.ops.kernels import adamw
+                from realise_tpu_torch.ops.kernels._build import load
                 from realise_tpu_torch.utils.profiler import (SpanRecorder,
                                                               trace)
 
                 if trainer.use_kernels:
-                    from realise_tpu_torch.ops.kernels._build import load
-
                     load("bert_block_train")
+                if trainer.optimizer.runs_kernels:
+                    load("adamw")
                 spans = SpanRecorder(device)
                 plain, first = trainer.model.span, trainer.step
+                updates = (adamw.global_norm_partials.launches
+                           + adamw.adamw_update.launches)
                 trainer.model.span = spans.span
                 try:
                     with trace(args.trace_dir, device):
@@ -313,6 +318,12 @@ def main(argv=None) -> int:
                                    if "device_ms" in t else "")
                                 + f", host {t['host_ms'] / steps:.3f}"
                                 for name, t in spans.totals().items()))
+                logger.info("update kernels of the traced steps: %d launches "
+                            "(%d tensors, %d elements a step)",
+                            adamw.global_norm_partials.launches
+                            + adamw.adamw_update.launches - updates,
+                            adamw.adamw_update.tensors,
+                            adamw.adamw_update.elements)
             summary = trainer.fit(stream, max_steps=total_steps, **fit_kw)
         finally:
             stream.close()  # stops and joins the prefetch worker

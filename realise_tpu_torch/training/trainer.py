@@ -9,7 +9,10 @@ The port of ``realise_tpu.training.trainer.Trainer``'s step
   running statistics updated by each in turn) and are divided once by the
   total count, so accumulation gives the full-batch gradient exactly;
 * then the global-norm clip and AdamW with the host-evaluated warmup
-  schedule (training/optim.py).
+  schedule (training/optim.py): on CUDA two kernels, the norm and then the
+  update, which divides and clips each gradient as it reads it and leaves
+  ``p.grad`` the step's sum; on the CPU the division and the clip in place
+  and ``torch.optim.AdamW``.
 
 Dropout keys and layer seeds are drawn on the host from the trainer's own
 ``torch.Generator`` (seeded by ``seed``): the step never waits for the
@@ -73,10 +76,11 @@ raises). The sums above are all-reduced over the rank's data group only
 ``model`` times), and so are the eval's gather and sums. The conjugate
 operators make the replicated parameters' gradients equal on a model
 group's ranks, so they need no model all-reduce; the clip sums the split
-gradients' squares over the model group (``optim.clip_by_global_norm``),
-and AdamW steps the local slices, so its moments are split like their
-parameters. The step is then the GSPMD one, the one-process step on the
-global batch, and not the shard_map one: every rank draws stream 0 (one
+gradients' squares over the model group (``optim.clip_by_global_norm``; on
+CUDA their chunks' partial sums, between the two kernels), and AdamW steps
+the local slices, so its moments are split like their parameters. The
+step is then the GSPMD one, the one-process step on the global batch, and
+not the shard_map one: every rank draws stream 0 (one
 key), each dropout site indexes its mask by the element's place in the
 global array, and the BatchNorm statistics are the global batch's. The
 glyph stream gets that from ``Realise.conv_rows`` over the data group: the
@@ -225,8 +229,10 @@ class Trainer:
         self.splits = (shard_module(model, groups) if self.tensor_parallel
                        else {})
         self.model = model.to(self.device).train()
-        self.optimizer = make_optimizer(self.model, learning_rate,
-                                        weight_decay, adam_epsilon)
+        self.optimizer = make_optimizer(
+            self.model, learning_rate, weight_decay, adam_epsilon,
+            split=[p for n, p in self.model.named_parameters()
+                   if n in self.splits])
         names = {id(p): n for n, p in self.model.named_parameters()}
         # The optimizer state's indices, by name: its groups' order.
         self._opt_names = [names[id(p)] for g in self.optimizer.param_groups
@@ -299,19 +305,25 @@ class Trainer:
             with span("all-reduce"):
                 self.all_reduce_sum([loss_sum, count] + grads)
         with span("clip+adamw"):
-            denom = torch.clamp(count, min=1.0)
-            for g in grads:
-                g.div_(denom)
-            if self.max_grad_norm is not None:
-                clip_by_global_norm(
-                    grads, self.max_grad_norm, self._split_mask,
-                    self.groups.model_group if self.tensor_parallel else None)
+            model_group = (self.groups.model_group if self.tensor_parallel
+                           else None)
+            if self.optimizer.runs_kernels:
+                # Two kernels: the norm, then the update, which divides and
+                # clips each gradient as it reads it (they stay the sums).
+                self.optimizer.clip(count, self.max_grad_norm, model_group)
+            else:
+                denom = torch.clamp(count, min=1.0)
+                for g in grads:
+                    g.div_(denom)
+                if self.max_grad_norm is not None:
+                    clip_by_global_norm(grads, self.max_grad_norm,
+                                        self._split_mask, model_group)
             self.optimizer.step()
         if self.data_group is not None and not self.tensor_parallel:
             with span("running-stats"):
                 self._average_running_stats()
         self.step += 1
-        return loss_sum / denom
+        return loss_sum / torch.clamp(count, min=1.0)
 
     def all_reduce_sum(self, tensors) -> None:
         """Sum each tensor over the ranks, in place: flattened into buckets of

@@ -9,6 +9,7 @@ imports JAX, hence ``--noconftest``):
         --noconftest -o addopts=""
 """
 
+import copy
 import io
 
 import numpy as np
@@ -21,6 +22,7 @@ from realise_tpu_torch.models.realise import Realise, RealisePretrain
 from realise_tpu_torch.ops import bert as tbert
 from realise_tpu_torch.ops.kernels import bert_block as tbb
 from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+from realise_tpu_torch.training import optim as toptim
 from realise_tpu_torch.training.checkpoint import save_checkpoint
 from realise_tpu_torch.training.trainer import Trainer
 from realise_tpu_torch.utils.profiler import SpanRecorder
@@ -555,3 +557,260 @@ def test_train_step_spans_each_encoder_backward(cuda_device, monkeypatch,
                             traced.model.parameters()):
         assert torch.equal(p.grad, q.grad), name
         assert torch.equal(p, q), name
+
+
+# ------------------------------------------------------- the update kernels
+def _update_model(device):
+    """A small arch3 on the card: both decay groups, 2-D weights, biases and
+    LayerNorms, tensors of every size up to the vocabulary's."""
+    return Realise(_tiny_cfg("float32"),
+                   generator=torch.Generator().manual_seed(0)).to(device)
+
+
+def _step_sums(params, seed, unused=()):
+    """Gradient sums of one step (over ~37 tokens), zero for the unused
+    parameters, made on the CPU and moved to the card."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.zeros(p.shape) if i in unused
+            else torch.randn(p.shape, generator=gen) * 40
+            for i, p in enumerate(params)]
+
+
+def _plain_step(opt, params, sums, count, max_norm):
+    """The trainer's CPU path on the card: divide, clip, torch's AdamW."""
+    for p, s in zip(params, sums):
+        p.grad = s.to(p.device, copy=True).div_(torch.clamp(count, min=1.0))
+    norm = (toptim.clip_by_global_norm([p.grad for p in params], max_norm)
+            if max_norm is not None else None)
+    opt.step()
+    return norm
+
+
+def _kernel_step(opt, params, sums, count, max_norm):
+    for p, s in zip(params, sums):
+        p.grad = s.to(p.device)
+    norm = opt.clip(count, max_norm)
+    opt.step()
+    return norm
+
+
+def _plain_adamw(kernel_opt):
+    """torch.optim.AdamW over the groups of ``kernel_opt``'s twin."""
+    return torch.optim.AdamW([dict(g, params=list(g["params"]))
+                              for g in kernel_opt.param_groups])
+
+
+def _assert_update_close(kernel_params, kernel_opt, plain_params, plain_opt):
+    """Parameters and both moments within 1e-6 of each tensor's largest
+    value: the two differ in the order of the norm's sums and in FMA
+    contraction only."""
+    for p, q in zip(kernel_params, plain_params):
+        assert _rel_err(p, q) <= 1e-6
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert _rel_err(kernel_opt.state[p][k], plain_opt.state[q][k]) \
+                <= 1e-6, k
+
+
+@pytest.mark.parametrize("max_norm", [1e-2, 1e6, None])
+def test_update_kernels_match_the_plain_path(cuda_device, max_norm):
+    """Four steps of the kernel path and of the plain path from one small
+    arch3, both decay groups, one parameter unused (zero gradient sums),
+    the clip engaged (1e-2), not engaged (1e6) and off (None): parameters
+    and moments agree (_assert_update_close), and the norms within 1e-6;
+    a second kernel run gives the same bits; the gradients stay the sums;
+    each step is two launches (one without the clip)."""
+    from realise_tpu_torch.ops.kernels import adamw as kadamw
+
+    model = _update_model(cuda_device)
+    copies = [copy.deepcopy(model) for _ in range(3)]
+    opts = [toptim.make_optimizer(m, 2e-3, 0.01) for m in copies]
+    params = [[p for g in o.param_groups for p in g["params"]] for o in opts]
+    plain = _plain_adamw(opts[2])
+    unused = {len(params[0]) - 1}
+    count = torch.tensor(37.0, device=cuda_device)
+    launches = (kadamw.global_norm_partials.launches,
+                kadamw.adamw_update.launches)
+    for step in range(4):
+        sums = _step_sums(params[0], step, unused)
+        norms = [_kernel_step(o, ps, sums, count, max_norm)
+                 for o, ps in zip(opts[:2], params[:2])]
+        want = _plain_step(plain, params[2], sums, count, max_norm)
+        if max_norm is not None:
+            assert abs(norms[0].item() - want.item()) <= 1e-6 * want.item()
+            assert (want.item() >= max_norm) == (max_norm < 1)
+            assert torch.equal(norms[0], norms[1])
+        for p, s in zip(params[0], sums):
+            assert torch.equal(p.grad, s.to(cuda_device))
+    assert (kadamw.global_norm_partials.launches - launches[0],
+            kadamw.adamw_update.launches - launches[1]) == (
+        (0 if max_norm is None else 8), 8)
+    assert kadamw.adamw_update.tensors == len(params[0])
+    assert kadamw.adamw_update.elements == sum(p.numel() for p in params[0])
+    _assert_update_close(params[0], opts[0], params[2], plain)
+    for p, q in zip(params[0], params[1]):
+        assert torch.equal(p, q)
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(opts[0].state[p][k], opts[1].state[q][k])
+    assert torch.count_nonzero(opts[0].state[params[0][-1]]["exp_avg"]) == 0
+
+
+def _side(model, kernel):
+    """A copy of ``model`` with make_optimizer's groups, on the kernel path
+    or torch's AdamW: (model, optimizer, parameters in group order,
+    kernel)."""
+    m = copy.deepcopy(model)
+    opt = toptim.make_optimizer(m, 2e-3, 0.01)
+    if not kernel:
+        opt = _plain_adamw(opt)
+    return m, opt, [p for g in opt.param_groups for p in g["params"]], kernel
+
+
+def _run(side, sums, count):
+    _, opt, params, kernel = side
+    (_kernel_step if kernel else _plain_step)(opt, params, sums, count, 1e-2)
+
+
+def test_update_kernels_load_torch_state_dicts(cuda_device):
+    """Two steps on each path, then each state dict into fresh optimizers of
+    both paths over the saver's weights: torch's format on both (step 2 in
+    every parameter's state, the same keys and groups), and the third step
+    of a loaded optimizer gives the bits its own path gives from that
+    state (the saver's third step) or, on the other path, agrees with it
+    within _assert_update_close's limit."""
+    count = torch.tensor(37.0, device=cuda_device)
+    model = _update_model(cuda_device)
+    own = {True: _side(model, True), False: _side(model, False)}
+    sums = [_step_sums(own[True][2], 10 + k) for k in range(3)]
+    for k in range(2):
+        for side in own.values():
+            _run(side, sums[k], count)
+    saved = {k: copy.deepcopy(side[1].state_dict())
+             for k, side in own.items()}
+    for st in saved.values():
+        assert {float(s["step"]) for s in st["state"].values()} == {2.0}
+    assert saved[True]["param_groups"] == saved[False]["param_groups"]
+    assert [list(s) for s in saved[True]["state"].values()] == [
+        list(s) for s in saved[False]["state"].values()]
+    loaded = {}
+    for saver in (True, False):
+        for kernel in (True, False):
+            side = loaded[saver, kernel] = _side(own[saver][0], kernel)
+            side[1].load_state_dict(copy.deepcopy(saved[saver]))
+    for side in list(own.values()) + list(loaded.values()):
+        _run(side, sums[2], count)
+    for (saver, kernel), side in loaded.items():
+        mine = own[saver]
+        if kernel == saver:
+            for p, q in zip(side[2], mine[2]):
+                assert torch.equal(p, q), (saver, kernel)
+                for k in ("exp_avg", "exp_avg_sq"):
+                    assert torch.equal(side[1].state[p][k],
+                                       mine[1].state[q][k]), (saver, k)
+        else:
+            k_side, p_side = (side, mine) if kernel else (mine, side)
+            _assert_update_close(k_side[2], k_side[1], p_side[2], p_side[1])
+        assert {float(s["step"]) for s in
+                side[1].state_dict()["state"].values()} == {3.0}
+
+
+def test_update_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A non-contiguous or bfloat16 parameter, parameters on the CPU and
+    the card together, a non-contiguous gradient, a missing one, a step
+    that no clip() declared."""
+    dev = cuda_device
+    count = torch.ones((), device=dev)
+
+    def step(*params):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opt = toptim.AdamW(list(params))
+        opt.clip(count, None)
+        opt.step()
+
+    with pytest.raises(ValueError, match="contiguous"):
+        step(torch.nn.Parameter(torch.randn(6, 4, device=dev).t()))
+    with pytest.raises(ValueError, match="dtype"):
+        step(torch.nn.Parameter(torch.randn(8, device=dev,
+                                            dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        step(torch.nn.Parameter(torch.randn(8)),
+             torch.nn.Parameter(torch.randn(8, device=dev)))
+    p = torch.nn.Parameter(torch.randn(4, 6, device=dev))
+    p.grad = torch.randn(6, 4, device=dev).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        step(p)
+    q = torch.nn.Parameter(torch.randn(4, device=dev))
+    opt = toptim.AdamW([q])
+    opt.clip(count, None)
+    with pytest.raises(ValueError, match="no gradient"):
+        opt.step()
+    q.grad = torch.zeros_like(q)
+    opt = toptim.AdamW([q])
+    with pytest.raises(ValueError, match="follows clip"):
+        opt.step()
+
+
+def test_update_kernels_over_many_unaligned_tensors(cuda_device):
+    """1000 tensors of 1 to 3000 elements, views at odd offsets of one
+    buffer (the kernels' scalar route), two groups: three launches of each
+    kernel a step (448 gradients a launch), and the plain path's result
+    within _assert_update_close's limit."""
+    from realise_tpu_torch.ops.kernels import adamw as kadamw
+
+    rng = np.random.RandomState(3)
+    sizes = rng.randint(1, 3001, 1000)
+    buf = torch.randn(int(sizes.sum()) + len(sizes), device=cuda_device)
+    offsets = np.cumsum(np.concatenate([[1], sizes[:-1] + 1]))
+    views = [torch.nn.Parameter(buf[o:o + n]) for o, n in zip(offsets, sizes)]
+    copies = [torch.nn.Parameter(v.detach().clone()) for v in views]
+    assert sum(v.data_ptr() % 16 != 0 for v in views) > 500
+
+    def groups(ps):
+        return [{"params": ps[::2], "weight_decay": 0.1},
+                {"params": ps[1::2], "weight_decay": 0.0}]
+
+    kern = toptim.AdamW(groups(views), lr=2e-3)
+    plain = torch.optim.AdamW(groups(copies), lr=2e-3)
+    order = [p for g in kern.param_groups for p in g["params"]]
+    plain_order = [p for g in plain.param_groups for p in g["params"]]
+    count = torch.tensor(11.0, device=cuda_device)
+    launches = kadamw.adamw_update.launches
+    for step in range(2):
+        sums = _step_sums(order, 20 + step)
+        _kernel_step(kern, order, sums, count, 1e-2)
+        _plain_step(plain, plain_order, sums, count, 1e-2)
+    assert kadamw.adamw_update.launches - launches == 6
+    _assert_update_close(order, kern, plain_order, plain)
+
+
+def test_trainer_updates_in_two_launches_a_step(cuda_device):
+    """The Trainer on the card (kernel path, float32): two update launches
+    a step, and the 'clip+adamw' span holds device time."""
+    from realise_tpu_torch.ops.kernels import adamw as kadamw
+
+    cfg = _tiny_cfg("float32")
+    gen = torch.Generator().manual_seed(0)
+    model = Realise(cfg, generator=gen)
+    model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
+                                     generator=gen) < 0.5).float())
+    tr = Trainer(cfg, model, use_kernels=True, device=cuda_device)
+    rec = SpanRecorder(cuda_device)
+    tr.model.span = rec.span
+    rng = np.random.RandomState(6)
+    b, s = 4, 20
+    masks = np.ones((b, s), np.int64)
+    batch = {"src_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "tgt_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "masks": masks, "loss_masks": masks.copy(),
+             "pho_idx": rng.randint(1, 30, (b, s, cfg.pho2_max_len)),
+             "pho_lens": rng.randint(0, cfg.pho2_max_len + 1, (b, s))}
+    def launches():
+        return (kadamw.global_norm_partials.launches
+                + kadamw.adamw_update.launches)
+
+    before = launches()
+    for _ in range(3):
+        tr.train_step(batch)
+    assert launches() - before == 6
+    assert rec.totals()["clip+adamw"]["device_ms"] > 0

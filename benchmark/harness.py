@@ -1,10 +1,6 @@
-"""What every traffic runner shares: the spans the benchmark records around
-the program's calls, the profiler trace and its reduction, the card's
-identity and the checks on what the process loaded.
-
-Spans: ``Spans.span(name)`` is the context-manager factory the program's
-``Realise.span`` hook takes; each span records a CUDA event pair (device
-time) and a ``record_function`` range (its name in the trace).
+"""What every traffic runner shares: the profiler trace and its reduction,
+the card's identity and the checks on what the process loaded. (The
+program's spans are recorded by its own ``utils/profiler.SpanRecorder``.)
 
 Trace: ``Trace`` profiles the host and the card (``torch.profiler``) over
 one window, writes the Chrome trace to a temporary file and reduces it:
@@ -70,36 +66,6 @@ def card_kind(device) -> str:
     log(f"nvidia-smi (index, name, power limit, SM clock, max SM clock, "
         f"temperature): {out}")
     return torch.cuda.get_device_name(device)
-
-
-class Spans:
-    """CUDA-event spans by name; :meth:`totals_ms` waits for the card."""
-
-    def __init__(self):
-        self.events: List[Tuple[str, object, object]] = []
-
-    @contextlib.contextmanager
-    def span(self, name: str):
-        import torch
-
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.profiler.record_function(name):
-            start.record()
-            try:
-                yield
-            finally:
-                end.record()
-        self.events.append((name, start, end))
-
-    def totals_ms(self) -> Dict[str, float]:
-        import torch
-
-        torch.cuda.synchronize()
-        out: Dict[str, float] = {}
-        for name, start, end in self.events:
-            out[name] = out.get(name, 0.0) + start.elapsed_time(end)
-        return out
 
 
 def kernel_groups(bench_dir: str) -> Dict[str, List[str]]:

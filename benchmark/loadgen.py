@@ -1,16 +1,29 @@
-"""Open-loop HTTP load: POST each request at its due time, whatever the
-server has not yet answered, and record when each answer came.
+"""HTTP load, open or closed loop, and when each answer came.
 
     python3 benchmark/loadgen.py SCHEDULE.json RESULTS.json
 
-``SCHEDULE.json``: {"port": int, "path": "/correct", "requests": [[due
-seconds, body], ...]}. Each request opens its own connection (HTTP/1.1,
-``Connection: close``) and reads the answer to its end. ``RESULTS.json``:
-one [status, latency seconds from the due time, seconds late at sending,
-body] per request, in schedule order; status 0 when no answer came (a
-refused connection, a reset, or none within ``deadline`` seconds of the
-last due time). Standard library only: the load runs in its own process,
-one thread, so it takes nothing from the server's interpreter.
+Open loop (``SCHEDULE.json``: {"port": int, "path": "/correct",
+"requests": [[due seconds, body], ...]}): POST each request at its due
+time, whatever the server has not yet answered. ``RESULTS.json``: one
+[status, latency seconds from the due time, seconds late at sending, body]
+per request, in schedule order; status 0 when no answer came (a refused
+connection, a reset, or none within ``deadline`` seconds of the last due
+time).
+
+Closed loop (the schedule has "clients" and "seconds": {"port", "path",
+"clients": n, "seconds": s, "timeout": t, "requests": [body, ...]}): n
+clients, each sending its next request as soon as its previous answer came;
+every client takes the next body of the list (from its start again when
+the list runs out) and sends nothing new once ``seconds`` have passed.
+``RESULTS.json``: {"window_s": seconds from the first send to the last
+answer, "results": one [index in the list, status, latency seconds from
+sending, seconds from the first send at sending, body] per request sent, in
+the order sent}; status 0 when no answer came within ``timeout`` seconds.
+
+Each request opens its own connection (HTTP/1.1, ``Connection: close``)
+and reads the answer to its end. Standard library only: the load runs in
+its own process, one thread, so it takes nothing from the server's
+interpreter.
 """
 
 import asyncio
@@ -21,9 +34,8 @@ import time
 START_DELAY = 0.05  # seconds from loading the schedule to the first due time
 
 
-async def one(loop, t0, due, port, path, body, out, i):
-    late = loop.time() - (t0 + due)
-    status, payload = 0, ""
+async def post(port, path, body):
+    """(status, payload) of one request; status 0 when no answer came."""
     writer = None
     try:
         reader, writer = await asyncio.open_connection("127.0.0.1", port)
@@ -35,17 +47,21 @@ async def one(loop, t0, due, port, path, body, out, i):
         await writer.drain()
         raw = await reader.read()
         head, _, rest = raw.partition(b"\r\n\r\n")
-        status = int(head.split(b" ", 2)[1])
-        payload = rest.decode("utf-8")
+        return int(head.split(b" ", 2)[1]), rest.decode("utf-8")
     except (OSError, ValueError, IndexError, asyncio.IncompleteReadError):
-        status = 0
+        return 0, ""
     finally:
         if writer is not None:
             writer.close()
+
+
+async def one(loop, t0, due, port, path, body, out, i):
+    late = loop.time() - (t0 + due)
+    status, payload = await post(port, path, body)
     out[i] = [status, loop.time() - (t0 + due), late, payload]
 
 
-async def main_async(schedule, deadline):
+async def open_loop(schedule, deadline):
     loop = asyncio.get_running_loop()
     port, path = schedule["port"], schedule.get("path", "/correct")
     requests = schedule["requests"]
@@ -71,14 +87,48 @@ async def main_async(schedule, deadline):
     return out
 
 
+async def closed_loop(schedule):
+    loop = asyncio.get_running_loop()
+    port, path = schedule["port"], schedule.get("path", "/correct")
+    bodies, timeout = schedule["requests"], schedule["timeout"]
+    out = []
+    taken = [0]  # requests handed out; no await between read and write
+    t0 = loop.time()
+    stop = t0 + schedule["seconds"]
+
+    async def client():
+        while loop.time() < stop:
+            i = taken[0] % len(bodies)
+            taken[0] += 1
+            start = loop.time()
+            try:
+                status, payload = await asyncio.wait_for(
+                    post(port, path, bodies[i]), timeout)
+            except asyncio.TimeoutError:
+                status, payload = 0, ""
+            out.append([i, status, loop.time() - start, start - t0, payload])
+
+    clients = [asyncio.create_task(client())
+               for _ in range(schedule["clients"])]
+    for task in clients:
+        await task
+    out.sort(key=lambda row: row[3])
+    return {"window_s": loop.time() - t0, "results": out}
+
+
 def main(argv):
     with open(argv[1], encoding="utf-8") as f:
         schedule = json.load(f)
     t = time.time()
-    out = asyncio.run(main_async(schedule, schedule.get("deadline", 60.0)))
+    if "clients" in schedule:
+        out = asyncio.run(closed_loop(schedule))
+        n = len(out["results"])
+    else:
+        out = asyncio.run(open_loop(schedule, schedule.get("deadline", 60.0)))
+        n = len(out)
     with open(argv[2], "w", encoding="utf-8") as f:
         json.dump(out, f)
-    print(f"loadgen: {len(out)} requests in {time.time() - t:.3f} s",
+    print(f"loadgen: {n} requests in {time.time() - t:.3f} s",
           file=sys.stderr)
     return 0
 

@@ -48,7 +48,8 @@ class Run:
         self.root, self.bench_dir, self.t_start = ROOT, BENCH_DIR, T_START
         # A fault planted under the timed path, for the benchmark's own
         # tests and calibration only: "half_batch", "unchanged_state",
-        # "no_exchange" (data parallel), "altered_token" (serving).
+        # "no_exchange" and "dropped_rank" (data parallel), "altered_token"
+        # (serving).
         self.fault = None
         # Calibration: also read the control (the reference in fp8 in the
         # program's place) against the reference.

@@ -36,6 +36,9 @@ DP_PARAMS = dict(TRAIN_PARAMS, batch=8)
 SERVE_PARAMS = dict(buckets=[8, 16, 32], rate=20.0, length_mean=8,
                     length_max=30, warm_seconds=0.5, trace_seconds=1,
                     sample_step_share=0.5)
+CLOSED_PARAMS = dict(buckets=[8, 16, 32], clients=4, requests=64,
+                     length_mean=8, length_max=30, warm_seconds=0.5,
+                     trace_seconds=1, sample_step_share=0.5)
 
 
 def run_cell(capsys, workload, params, seconds="1", fault=None, **cfg):

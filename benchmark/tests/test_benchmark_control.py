@@ -72,6 +72,7 @@ def test_serving_control_is_not_correct(one_thread):
     src[:, 0], src[:, -1] = vocab.index("[CLS]"), vocab.index("[SEP]")
     masks = torch.ones_like(src)
     gap = compare.control_gap(ref, control, src, masks)
-    verdict = compare.judge({"served_gap": gap, "step_gap": gap},
-                            limits("arch3.serve.open"))
-    assert not verdict["ok"], gap
+    for cell in ("arch3.serve.open", "arch3.serve.closed8"):
+        verdict = compare.judge({"served_gap": gap, "step_gap": gap},
+                                limits(cell))
+        assert not verdict["ok"], (cell, gap)

@@ -1,13 +1,20 @@
-"""A tiny run of every cell through run.py on the CPU, the per-layer
-readers on observations of a run's shape, and the trace reduction on a
-synthetic Chrome trace."""
+"""A tiny run of every cell through run.py on the CPU, the closed loop's
+rate against the load generator's own record, the load generator against a
+stub server, the per-layer readers on observations of a run's shape, and
+the trace reduction on a synthetic Chrome trace."""
 
 import json
 import os
+import subprocess
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import pytest
 
-from conftest import ROOT, SERVE_PARAMS, TRAIN_PARAMS, run_cell
+from conftest import (CLOSED_PARAMS, DP_PARAMS, ROOT, SERVE_PARAMS,
+                      TRAIN_PARAMS, run_cell, tiny_config)
 
 from benchmark import harness
 
@@ -31,6 +38,8 @@ def bench():
     ("bert.train.b256", TRAIN_PARAMS, "1"),
     ("bert.train.b32", TRAIN_PARAMS, "1"),
     ("arch3.serve.open", SERVE_PARAMS, "2"),
+    ("arch3.serve.closed8", CLOSED_PARAMS, "2"),
+    ("arch3.train.dp4", DP_PARAMS, "1"),
 ])
 def test_cell_runs_tiny(capsys, one_thread, workload, params, seconds):
     rc, res = run_cell(capsys, workload, params, seconds=seconds)
@@ -89,6 +98,18 @@ def test_trace_reduction(tmp_path):
     assert b["device_ops"][0][0] == "elementwise"
 
 
+RUNNER_KIND = {"train_stream": "train", "train_dp": "dp",
+               "serve_open": "serve", "serve_closed": "serve"}
+
+
+def cell_kind(b, cell):
+    """train, dp or serve: what the cell's traffic runner observes."""
+    entry = next(w for w in b["workloads"] if w["name"] == cell)
+    with open(os.path.join(ROOT, "benchmark", "traffic",
+                           entry["traffic"] + ".json")) as f:
+        return RUNNER_KIND[json.load(f)["runner"]]
+
+
 def test_readers(tmp_path):
     from benchmark import run
 
@@ -97,20 +118,120 @@ def test_readers(tmp_path):
     trace = harness.reduce_trace(path)
     with open(os.path.join(ROOT, "benchmark", "configs", "arch3.json")) as f:
         cfg = json.load(f)
+    spans = {"input": 0.25, "prep": 3.0, "upload": 1.5,
+             "encoder.attn_bwd": 20.0, "encoder.ffn_bwd": 12.0,
+             "backward": 40.0, "clip+adamw": 2.0, "glyph": 1.0, "gru": 0.5,
+             "all-reduce": 3.0}
     train = {"cfg": cfg, "trace": trace, "steps": 2, "train": True,
              "step_shapes": [(4, 8), (4, 8)], "sentence_tokens": [5, 6],
-             "span_ms": {"clip+adamw": 2.0, "glyph": 1.0, "gru": 0.5},
-             "input_wait_ms": 0.25, "window_s": 1e-3}
+             "span_ms": spans, "window_s": 1e-3}
     serve = {"cfg": cfg, "trace": trace, "serve": True, "requests": 3,
              "sentences": 4, "device_steps": 2, "featurize_ms": 0.5,
              "step_shapes": [(1, 8)], "sentence_tokens": [5, 6, 7, 8]}
     dp = dict(train, train=False, dp=True, ranks=4, allreduce_ms=3.0)
-    kinds = {"train_sent_per_s": train, "train_dp_sent_per_s": dp}
-    for m in bench()["per_layer"]:
-        obs = kinds.get(m["moves"], serve)
-        value = run.read_per_layer(m, obs)
+    kinds = {"train": train, "dp": dp, "serve": serve}
+    b = bench()
+    read = set()
+    for m in b["per_layer"]:
+        found = {cell_kind(b, w) for w in m["workloads"]}
+        assert len(found) == 1, m["name"]
+        kind = found.pop()
+        value = run.read_per_layer(m, kinds[kind])
         assert value is not None and value > 0, m["name"]
-        for other in (train, serve, dp):
-            if other is not obs:
-                assert run.read_per_layer(m, other) is None, m["name"]
+        for other, obs in kinds.items():
+            if other != kind:
+                assert run.read_per_layer(m, obs) is None, (m["name"], other)
+        read.add((kind, m["moves"]))
+    assert {("train", "train_sent_per_s"), ("dp", "train_sent_per_s"),
+            ("serve", "serve_sent_per_s")} <= read
     assert run.read_per_layer({"name": "train.streams_ms"}, train) == 1.5
+
+
+def test_closed_loop_rate_is_the_sentences_answered_over_the_window(
+        capsys, one_thread, monkeypatch):
+    """serve_sent_per_s against the load generator's own record of the
+    window: the sentences of every request it saw answered with a 200."""
+    import torch
+
+    from benchmark import run
+    from benchmark.traffic import serve_closed
+
+    record = {}
+    real = serve_closed.closed_loop
+
+    def closed_loop(port, bodies, p, seconds, tmp, tag):
+        res = real(port, bodies, p, seconds, tmp, tag)
+        if tag == "window":
+            record["bodies"], record["res"] = bodies, res
+        return res
+
+    monkeypatch.setattr(serve_closed, "closed_loop", closed_loop)
+    r = run.load_run("arch3.serve.closed8", 3000000001, 2.0, 0,
+                     torch.device("cpu"), tiny_config(), CLOSED_PARAMS)
+    out = serve_closed.run(r)
+    assert out["correct"] and out["failed"] == 0, out["checks"]
+    res = record["res"]
+    answered = [row for row in res["results"] if row[1] == 200]
+    assert answered and len(answered) == len(res["results"])
+    sentences = sum(len(json.loads(record["bodies"][row[0]])["sentences"])
+                    for row in answered)
+    assert out["end_to_end"]["serve_sent_per_s"] == pytest.approx(
+        sentences / res["window_s"])
+    assert out["attempted"] == len(res["results"])
+    # Every client waited for its answer: no more than 4 in flight at once.
+    events = sorted([(row[3], 1) for row in res["results"]]
+                    + [(row[3] + row[2], -1) for row in res["results"]])
+    flight = peak = 0
+    for _, step in events:
+        flight += step
+        peak = max(peak, flight)
+    assert peak <= CLOSED_PARAMS["clients"]
+
+
+class SlowHandler(BaseHTTPRequestHandler):
+    """Answers each POST after 20 ms with the sentences it was sent."""
+
+    def do_POST(self):
+        body = self.rfile.read(int(self.headers["Content-Length"]))
+        time.sleep(0.02)
+        data = json.dumps({"results": json.loads(body)["sentences"]}).encode()
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def log_message(self, *args):
+        pass
+
+
+def test_loadgen_closed_loop_against_a_stub(tmp_path):
+    server = ThreadingHTTPServer(("127.0.0.1", 0), SlowHandler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        bodies = [json.dumps({"sentences": ["a"] * (1 + i % 3)})
+                  for i in range(5)]
+        sched, res = tmp_path / "s.json", tmp_path / "r.json"
+        sched.write_text(json.dumps({
+            "port": server.server_address[1], "clients": 3, "seconds": 0.5,
+            "timeout": 10.0, "requests": bodies}))
+        subprocess.run([sys.executable, os.path.join(
+            ROOT, "benchmark", "loadgen.py"), str(sched), str(res)],
+            check=True, timeout=60)
+        out = json.loads(res.read_text())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    rows = out["results"]
+    # 3 clients, about 20 ms a request, 0.5 s: some tens of requests, the
+    # list taken again from its start, each sent after the last one's answer.
+    assert 15 <= len(rows) <= 3 * 0.5 / 0.02 + 3
+    assert all(row[1] == 200 for row in rows)
+    assert sorted(row[0] for row in rows) == sorted(
+        k % 5 for k in range(len(rows)))
+    assert all(json.loads(row[4])["results"] ==
+               json.loads(bodies[row[0]])["sentences"] for row in rows)
+    assert all(row[3] < 0.5 for row in rows)
+    last = max(row[3] + row[2] for row in rows)
+    assert last <= out["window_s"] < last + 0.05

@@ -17,7 +17,7 @@ OLD_SPANS = {"backward": 40.0, "clip+adamw": 2.0, "glyph": 1.0, "gru": 0.5}
 
 def observation(span_ms, steps=2):
     return {"train": True, "steps": steps, "span_ms": dict(span_ms),
-            "input_wait_ms": 0.25, "window_s": 1.0}
+            "window_s": 1.0}
 
 
 def read(name, obs):

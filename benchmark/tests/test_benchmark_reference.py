@@ -5,7 +5,8 @@ three training steps and the served logits within float32 rounding."""
 import pytest
 import torch
 
-from conftest import DP_PARAMS, ROOT, SERVE_PARAMS, TRAIN_PARAMS, run_cell
+from conftest import (CLOSED_PARAMS, DP_PARAMS, ROOT, SERVE_PARAMS,
+                      TRAIN_PARAMS, run_cell)
 
 from benchmark.reference import dropout as D
 from benchmark.reference import text
@@ -64,8 +65,10 @@ def test_float32_training_steps_agree(capsys, one_thread, workload, params):
         assert c["value"] < c["limit"] / 10, (name, c)
 
 
-def test_float32_serving_agrees(capsys, one_thread):
-    rc, res = run_cell(capsys, "arch3.serve.open", SERVE_PARAMS, seconds="2")
+@pytest.mark.parametrize("workload,params", [
+    ("arch3.serve.open", SERVE_PARAMS), ("arch3.serve.closed8", CLOSED_PARAMS)])
+def test_float32_serving_agrees(capsys, one_thread, workload, params):
+    rc, res = run_cell(capsys, workload, params, seconds="2")
     assert rc == 0 and res["correct"] and res["failed"] == 0
     for name, c in res["checks"].items():
         assert c["value"] < c["limit"] / 10, (name, c)

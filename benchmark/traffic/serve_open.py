@@ -62,16 +62,22 @@ def schedule(sent: inputs.Sentences, seed: int, p: Dict, seconds: float):
     lengths = sent.lengths(int(sizes.sum()))
     rng = np.random.default_rng([seed, 3])
     lengths = rng.permutation(lengths)
+    return list(zip(np.cumsum(gaps).tolist(), fill(sent, rng, lengths, sizes)))
+
+
+def fill(sent: inputs.Sentences, rng: np.random.Generator,
+         lengths: np.ndarray, sizes) -> List[List[str]]:
+    """Requests of ``sizes`` sentences each, whose sentences take
+    ``lengths`` in turn, their chars drawn by ``rng``."""
     ids = sent.draw_ids(rng, int(lengths.sum()))
-    out, t, k, off = [], 0.0, 0, 0
-    for gap, size in zip(gaps, sizes):
-        t += gap
+    out, k, off = [], 0, 0
+    for size in sizes:
         batch = []
         for n_chars in lengths[k:k + size]:
             batch.append("".join(sent.chars[ids[off:off + n_chars]]))
             off += n_chars
         k += size
-        out.append((t, batch))
+        out.append(batch)
     return out
 
 
@@ -176,9 +182,73 @@ def daemon(r):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def body(sentences: List[str]) -> str:
+    return json.dumps({"sentences": sentences}, ensure_ascii=False)
+
+
+def run_loadgen(schedule: Dict, tmp: str, tag: str):
+    """Run the load generator over ``schedule`` (``loadgen.py``'s format);
+    its results."""
+    sched = os.path.join(tmp, f"schedule-{tag}.json")
+    res = os.path.join(tmp, f"results-{tag}.json")
+    with open(sched, "w", encoding="utf-8") as f:
+        json.dump(schedule, f, ensure_ascii=False)
+    subprocess.run([sys.executable, LOADGEN, sched, res], check=True)
+    with open(res, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def load(port: int, requests, tmp: str, tag: str):
+    """The open loop over ``requests`` ([(due, sentences)]); its results."""
+    return run_loadgen({"port": port, "requests": [
+        [due, body(s)] for due, s in requests]}, tmp, tag)
+
+
+def warm(r, sent, port: int, tmp: str):
+    load(port, schedule(sent, r.seed + 1, dict(r.params, rate=r.params[
+        "warm_rate"]), r.params["warm_seconds"]), tmp, "warm")
+
+
+def window(r, sent, port: int, seconds: float, tmp: str):
+    """The open loop for ``seconds``: ([(sentences, status, latency,
+    payload)], the window's seconds)."""
+    p = r.params
+    requests = schedule(sent, r.seed, p, seconds)
+    results = load(port, requests, tmp, "window")
+    rows = [(s, status, latency, payload) for (_, s), (
+        status, latency, _, payload) in zip(requests, results)]
+    lat = [x if status == 200 else float("inf")
+           for _, status, x, _ in rows]
+    by_second: Dict[int, List[float]] = {}
+    for (due, _), x in zip(requests, lat):
+        by_second.setdefault(int(due), []).append(x)
+    log(f"{r.name}: at {p['rate']}/s, p50 ms by second of the window " + " ".join(
+        f"{1e3 * percentile(v, 50):.0f}" for _, v in sorted(by_second.items()))
+        + f"; p99 {1e3 * percentile(lat, 99):.3f} ms, max "
+        f"{1e3 * max(lat, default=0.0):.3f} ms, over 1 s "
+        f"{sum(x > 1.0 for x in lat)}, loadgen at most "
+        f"{1e3 * max((x[2] for x in results), default=0.0):.3f} ms late")
+    return rows, seconds
+
+
+def end_to_end(lat: List[float], sentences: int, seconds: float) -> Dict:
+    big = 1e9  # ms of a request with no answer: past every limit
+    return {"serve_p50_ms": min(1e3 * percentile(lat, 50), big),
+            "serve_p95_ms": min(1e3 * percentile(lat, 95), big)}
+
+
 def run(r) -> Dict:
+    return serve(r, warm, window, end_to_end)
+
+
+def serve(r, warm, window, end_to_end) -> Dict:
+    """Set-up, the window and the check of a serving cell: the daemon,
+    ``warm(r, sent, port, tmp)``, the timed ``window(r, sent, port, seconds,
+    tmp)`` and the cell's ``end_to_end(latencies, sentences answered,
+    window seconds)`` metrics; then the reference over what was served."""
     with daemon(r) as (corrector, server, vocab, table, cjk, shapes, tmp):
-        out = drive(r, corrector, server, vocab, cjk, tmp)
+        out = drive(r, corrector, server, vocab, cjk, tmp, warm, window,
+                    end_to_end)
     del corrector, server
     gc.collect()
     if r.device.type == "cuda":
@@ -188,33 +258,39 @@ def run(r) -> Dict:
     return out
 
 
-def load(port: int, requests, tmp: str, tag: str):
-    """Run the load generator over ``requests``; its results."""
-    sched = os.path.join(tmp, f"schedule-{tag}.json")
-    res = os.path.join(tmp, f"results-{tag}.json")
-    with open(sched, "w", encoding="utf-8") as f:
-        json.dump({"port": port, "requests": [
-            [due, json.dumps({"sentences": s}, ensure_ascii=False)]
-            for due, s in requests]}, f, ensure_ascii=False)
-    subprocess.run([sys.executable, LOADGEN, sched, res], check=True)
-    with open(res, encoding="utf-8") as f:
-        return json.load(f)
+def collect(rows):
+    """(latencies, served, failed) of [(sentences, status, latency,
+    payload)]: a request with no 200 that answers each of its sentences has
+    failed, and its latency is infinite."""
+    lat, served, failed = [], [], 0
+    for sentences, status, latency, payload in rows:
+        answer = None
+        if status == 200:
+            try:
+                answer = json.loads(payload).get("results")
+            except ValueError:  # a 200 that is no JSON is no answer
+                pass
+        if answer is None or len(answer) != len(sentences):
+            failed += 1
+            lat.append(float("inf"))
+            continue
+        lat.append(latency)
+        served.append((sentences, [a["corrected"] for a in answer]))
+    return lat, served, failed
 
 
-def drive(r, corrector, server, vocab, cjk, tmp) -> Dict:
+def drive(r, corrector, server, vocab, cjk, tmp, warm, window,
+          end_to_end) -> Dict:
     p, device = r.params, r.device
     port = server.server_address[1]
     sent = inputs.Sentences(vocab, cjk, p)
-    warm = schedule(sent, r.seed + 1, dict(p, rate=p["warm_rate"]),
-                    p["warm_seconds"])
-    load(port, warm, tmp, "warm")
+    warm(r, sent, port, tmp)
     steps = StepLog(corrector, r.seed, p["sample_step_share"],
                     p["sample_steps"], alter=r.fault == "altered_token")
     corrector.logits = steps
     clock = FeaturizeClock(corrector.featurizer)
     corrector.featurizer.featurize_raw = clock
     seconds = min(r.seconds, p["trace_seconds"]) if r.trace else r.seconds
-    requests = schedule(sent, r.seed, p, seconds)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     settle()
@@ -224,40 +300,21 @@ def drive(r, corrector, server, vocab, cjk, tmp) -> Dict:
     if r.trace:
         trace = Trace(device)
         with trace.window():
-            results = load(port, requests, tmp, "window")
+            rows, window_s = window(r, sent, port, seconds, tmp)
     else:
-        results = load(port, requests, tmp, "window")
+        rows, window_s = window(r, sent, port, seconds, tmp)
     n_steps = corrector.steps - steps0
-    lat, served, failed = [], [], 0
-    for (due, sentences), (status, latency, late, body) in zip(requests,
-                                                               results):
-        answer = None
-        if status == 200:
-            answer = json.loads(body).get("results")
-        if answer is None or len(answer) != len(sentences):
-            failed += 1
-            lat.append(float("inf"))
-            continue
-        lat.append(latency)
-        served.append((sentences, [a["corrected"] for a in answer]))
-    lateness = max((res[2] for res in results), default=0.0)
-    by_second: Dict[int, List[float]] = {}
-    for (due, _), x in zip(requests, lat):
-        by_second.setdefault(int(due), []).append(x)
-    log(f"{r.name}: p50 ms by second of the window " + " ".join(
-        f"{1e3 * percentile(v, 50):.0f}" for _, v in sorted(by_second.items())))
-    p50, p95 = percentile(lat, 50), percentile(lat, 95)
+    lat, served, failed = collect(rows)
+    n_sent = sum(len(s) for s, _ in served)
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     kind = card_kind(device) if device.type == "cuda" else "cpu"
-    n_sent = sum(len(s) for s, _ in served)
-    log(f"{r.name}: set-up {t_setup - r.t_start:.3f} s, {len(requests)} "
-        f"requests ({n_sent} sentences) in {seconds} s at {p['rate']}/s, "
-        f"{failed} failed, p50 {1e3 * p50:.3f} ms, p95 {1e3 * p95:.3f} ms, "
-        f"p99 {1e3 * percentile(lat, 99):.3f} ms, max {1e3 * max(lat):.3f} "
-        f"ms, over 1 s {sum(x > 1.0 for x in lat)}, "
-        f"{n_steps} device steps, loadgen at most {1e3 * lateness:.3f} ms "
-        f"late, peak {peak / 2 ** 30:.2f} GiB")
+    log(f"{r.name}: set-up {t_setup - r.t_start:.3f} s, {len(rows)} "
+        f"requests ({n_sent} sentences answered) in a {window_s:.3f}-s "
+        f"window, {failed} failed, {n_sent / window_s:.1f} sentences/s, per "
+        f"request p50 {1e3 * percentile(lat, 50):.3f} ms, p95 "
+        f"{1e3 * percentile(lat, 95):.3f} ms, {n_steps} device steps, peak "
+        f"{peak / 2 ** 30:.2f} GiB")
     obs = {}
     if r.trace:
         obs = {"cfg": r.cfg, "trace": trace.summary, "serve": True,
@@ -266,11 +323,9 @@ def drive(r, corrector, server, vocab, cjk, tmp) -> Dict:
                "featurize_ms": 1e3 * clock.seconds / max(len(served), 1),
                "step_shapes": [(b, s) for _, b, s in steps.shapes],
                "sentence_tokens": [len(x) + 2 for s, _ in served for x in s]}
-    big = 1e9  # ms of a request with no answer: past every limit
-    return {"end_to_end": {"serve_p50_ms": min(1e3 * p50, big),
-                           "serve_p95_ms": min(1e3 * p95, big),
-                           "setup_s": t_setup - r.t_start},
-            "attempted": len(requests), "failed": failed,
+    return {"end_to_end": dict(end_to_end(lat, n_sent, window_s),
+                               setup_s=t_setup - r.t_start),
+            "attempted": len(rows), "failed": failed,
             "memory_peak_bytes": int(peak), "kind": kind,
             "trace": trace.summary if trace else None, "observations": obs,
             "served": {"requests": served, "steps": steps.samples,

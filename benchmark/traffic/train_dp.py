@@ -6,10 +6,13 @@ The harness's process is rank 0; it starts ranks 1..N-1 as processes of
 this module with torchrun's variables (``MASTER_ADDR``/``MASTER_PORT``,
 ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), which the port's
 ``parallel/distributed.initialize`` reads, and waits for every one to end.
+As torchrun does, every rank gets one intra-op thread unless
+``OMP_NUM_THREADS`` says otherwise, so the ranks' host ops do not each take
+every core.
 Each rank iterates the same global batches of ``params["batch"]`` rows and
 featurizes its contiguous slice; the Trainer all-reduces the step's sums.
 The ranks agree on each step over a gloo group on the host, so all run
-the same steps; ``train_dp_sent_per_s`` takes the real sentences of every
+the same steps; ``train_sent_per_s`` takes the real sentences of every
 global batch started in the window over the window of the slowest rank.
 Rank 0 alone runs the reference: the ranks' slices, each with its own
 dropout draws and BatchNorm statistics, summed, as the all-reduce sums them.
@@ -29,7 +32,9 @@ import subprocess
 import sys
 from typing import Dict
 
-RANK_TIMEOUT_S = 600
+RANK_TIMEOUT_S = 120
+# torchrun's default for a worker when the environment sets none.
+THREADS = os.environ.get("OMP_NUM_THREADS", "1")
 
 
 def free_port() -> int:
@@ -66,21 +71,29 @@ def run(r) -> Dict:
     procs = [subprocess.Popen(
         [sys.executable, "-m", "benchmark.traffic.train_dp", str(k),
          str(port), r.name, str(r.seed), str(r.seconds), str(int(r.trace)),
-         extra], cwd=root, env=dict(os.environ, PYTHONPATH=root))
+         extra], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS=THREADS))
         for k in range(1, r.params["data"])]
+    import torch
+
+    from realise_tpu_torch.parallel.distributed import shutdown
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(int(THREADS))
     try:
         join_group(r, 0, port)
         return train_stream.run(r)
     finally:
+        torch.set_num_threads(threads)
+        # NCCL's teardown waits for every rank's: rank 0 ends its groups
+        # with the others, and only then waits for their processes.
+        shutdown()
         for p in procs:
             try:
                 p.wait(timeout=RANK_TIMEOUT_S)
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
-        from realise_tpu_torch.parallel.distributed import shutdown
-
-        shutdown()
         bad = [p.returncode for p in procs if p.returncode]
         if bad:
             raise RuntimeError(f"a rank exited with {bad}")

@@ -16,7 +16,8 @@ is every real (unpadded) sentence of the steps started in the window over
 the window's length. A step whose loss is not finite counts as failed.
 
 With ``--trace 1`` the window runs under the profiler, for at most
-``trace_seconds``, with the model's spans timed by CUDA events.
+``trace_seconds``, with the program's spans recorded by its own
+``utils/profiler.SpanRecorder``.
 
 One rank of several (``traffic/train_dp.py`` sets ``r.rank``, ``r.world``
 and ``r.host_group``) featurizes its slice of each global batch, trains
@@ -36,8 +37,7 @@ from typing import Dict, List
 import torch
 
 from benchmark import inputs
-from benchmark.harness import (Spans, Trace, TraceSummary, card_kind, log,
-                               settle)
+from benchmark.harness import Trace, TraceSummary, card_kind, log, settle
 from benchmark.reference import compare, text
 
 COMPARED_STEPS = 3
@@ -53,13 +53,12 @@ class Recorder:
 
 
 class Window:
-    """The stream until a deadline; times each wait for a batch. With a
-    (host, gloo) ``group`` the ranks go on only while every rank's clock is
-    before its deadline, so all run the same steps."""
+    """The stream until a deadline. With a (host, gloo) ``group`` the ranks
+    go on only while every rank's clock is before its deadline, so all run
+    the same steps."""
 
     def __init__(self, stream, deadline: float, group=None):
         self.stream, self.deadline, self.group = stream, deadline, group
-        self.waits: List[float] = []
 
     def go(self) -> bool:
         go = time.perf_counter() < self.deadline
@@ -73,10 +72,7 @@ class Window:
 
     def __iter__(self):
         while self.go():
-            t = time.perf_counter()
-            batch = next(self.stream)
-            self.waits.append(time.perf_counter() - t)
-            yield batch
+            yield next(self.stream)
 
 
 def program_config(cfg: Dict):
@@ -181,6 +177,8 @@ def run(r) -> Dict:
                                             list(trainer.model.parameters()))
         if r.fault == "no_exchange":
             trainer.all_reduce_sum = lambda tensors: None
+        if r.fault == "dropped_rank" and r.rank == r.world - 1:
+            trainer.all_reduce_sum = dropped(trainer.all_reduce_sum)
         # The batches' order (and so the sequence of shapes a window sees)
         # is the mix's, the same in every run; the seed draws the text.
         feed = threaded_prefetch(stream(pool, featurizer, p["batch"],
@@ -218,13 +216,25 @@ def frozen(step, params):
     return run
 
 
+def dropped(all_reduce_sum):
+    """The all-reduce with this rank's sums left out: it adds zeros (a fault
+    for the benchmark's own tests and calibration)."""
+
+    def run(tensors):
+        for t in tensors:
+            t.zero_()
+        all_reduce_sum(tensors)
+
+    return run
+
+
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def drive(r, trainer, feed, rec: Recorder) -> Dict:
-    from realise_tpu_torch.models.realise import no_span
+    from realise_tpu_torch.utils.profiler import SpanRecorder, no_span
 
     device, p = r.device, r.params
     trainer.fit(feed, max_steps=1)
@@ -245,19 +255,17 @@ def drive(r, trainer, feed, rec: Recorder) -> Dict:
     t_setup = time.perf_counter()
     spans = trace = None
     if r.trace:
-        spans, trace = Spans(), Trace(device)
+        spans, trace = SpanRecorder(device), Trace(device)
         trainer.model.span = spans.span
         seconds = min(r.seconds, p["trace_seconds"])
         with trace.window():
             t0 = time.perf_counter()
-            window = Window(feed, t0 + seconds, r.host_group)
-            trainer.fit(window)
+            trainer.fit(Window(feed, t0 + seconds, r.host_group))
         wall = time.perf_counter() - t0
         trainer.model.span = no_span
     else:
         t0 = time.perf_counter()
-        window = Window(feed, t0 + r.seconds, r.host_group)
-        trainer.fit(window)
+        trainer.fit(Window(feed, t0 + r.seconds, r.host_group))
         sync(device)
         wall = time.perf_counter() - t0
     steps = list(range(first, len(rec.losses)))
@@ -269,7 +277,7 @@ def drive(r, trainer, feed, rec: Recorder) -> Dict:
     kind = card_kind(device) if device.type == "cuda" else "cpu"
     obs, summary = {}, trace.summary if trace else None
     if r.trace:
-        obs = observations(r, steps, rec, window, spans, summary, wall)
+        obs = observations(r, steps, rec, spans, summary, wall)
     setup = t_setup - r.t_start
     if r.world > 1:  # every rank's readings to rank 0
         import torch.distributed as dist
@@ -294,26 +302,26 @@ def drive(r, trainer, feed, rec: Recorder) -> Dict:
     log(f"{r.name}: set-up {setup:.3f} s, window "
         f"{wall:.3f} s, {len(steps)} steps, {sentences} sentences, "
         f"{sentences / wall:.1f} sentences/s, peak {peak / 2 ** 30:.2f} GiB")
-    rate = "train_dp_sent_per_s" if r.world > 1 else "train_sent_per_s"
-    return {"end_to_end": {rate: sentences / wall, "setup_s": setup},
+    return {"end_to_end": {"train_sent_per_s": sentences / wall,
+                           "setup_s": setup},
             "attempted": len(steps), "failed": failed,
             "memory_peak_bytes": int(peak), "kind": kind,
-            "trace": trace.summary if trace else None, "observations": obs,
+            "trace": summary, "observations": obs,
             "program": {"losses": [float(l) for l in
                                    rec.losses[:COMPARED_STEPS]],
                         "grad_norms": grad_norms, "first_grads": first_grads,
                         "snapshot": snapshot}}
 
 
-def observations(r, steps, rec, window, spans, summary, wall) -> Dict:
-    totals = spans.totals_ms()
+def observations(r, steps, rec, spans, summary, wall) -> Dict:
+    totals = spans.totals()
     n = max(len(steps), 1)
     shapes = [(r.params["batch"], rec.batches[k][0]) for k in steps]
     lengths = [len(ex["src_idx"]) for k in steps for ex in rec.batches[k][1]]
     return {"cfg": r.cfg, "trace": summary, "steps": len(steps),
             "step_shapes": shapes, "sentence_tokens": lengths,
-            "span_ms": {k: v / n for k, v in totals.items()},
-            "input_wait_ms": 1e3 * sum(window.waits) / n, "train": True,
+            "span_ms": {k: v["device_ms"] / n for k, v in totals.items()},
+            "train": True,
             "window_s": wall}
 
 

@@ -38,8 +38,8 @@ from typing import Dict, List, Sequence
 
 import torch
 
+from benchmark.reference import reference_class
 from benchmark.reference.dropout import Draws
-from benchmark.reference.model import Reference
 from benchmark.reference.optim import AdamW, clip
 
 BUFFER_SUFFIXES = ("running_mean", "running_var", "num_batches_tracked")
@@ -72,7 +72,7 @@ def reference_steps(cfg: Dict, weights: Dict[str, torch.Tensor], pho,
               for n in names}
     P = dict(weights)
     P.update(params)
-    ref = Reference(cfg, P, *pho, precision=precision)
+    ref = reference_class(cfg)(cfg, P, *pho, precision=precision)
     ranks = len(batches[0])
     draws = [Draws(trainer_seed, stream=k) for k in range(ranks)]
     opt = AdamW(names, cfg["optimizer"])
@@ -208,7 +208,7 @@ def token_gap(logits: torch.Tensor, pred: torch.Tensor,
     return float(gap.max()) if gap.numel() else 0.0
 
 
-def control_gap(ref: Reference, control: Reference, src_idx, masks) -> float:
+def control_gap(ref, control, src_idx, masks) -> float:
     """The gap of the control's argmax under the reference."""
     with torch.no_grad():
         want = ref.forward(src_idx, masks)

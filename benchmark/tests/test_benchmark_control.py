@@ -12,8 +12,7 @@ import torch
 from conftest import ROOT, tiny_config
 
 from benchmark import inputs
-from benchmark.reference import compare, text
-from benchmark.reference.model import Reference
+from benchmark.reference import compare, reference_class, text
 
 
 def setup(config, width=64):
@@ -65,8 +64,9 @@ def test_training_control_is_not_correct(one_thread, cell, config):
 def test_serving_control_is_not_correct(one_thread):
     # The published width (the logits' spread grows with it), few layers.
     cfg, vocab, cjk, weights, pho = setup("arch3.json", width=768)
-    ref = Reference(cfg, weights, *pho)
-    control = Reference(cfg, weights, *pho, precision="fp8")
+    cls = reference_class(cfg)
+    ref = cls(cfg, weights, *pho)
+    control = cls(cfg, weights, *pho, precision="fp8")
     rng = np.random.default_rng(3)
     src = torch.as_tensor(rng.choice(cjk, (16, 60)))
     src[:, 0], src[:, -1] = vocab.index("[CLS]"), vocab.index("[SEP]")

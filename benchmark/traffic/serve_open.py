@@ -41,8 +41,7 @@ import torch
 
 from benchmark import inputs
 from benchmark.harness import Trace, card_kind, log, settle
-from benchmark.reference import compare, text
-from benchmark.reference.model import Reference
+from benchmark.reference import compare, reference_class, text
 from benchmark.traffic.train_stream import program_config
 
 LOADGEN = os.path.join(os.path.dirname(os.path.dirname(
@@ -361,7 +360,8 @@ def encode(sentences: List[str], index: Dict[str, int], device):
 def reference_model(r, shapes, cjk, pho, precision="f32"):
     weights = inputs.make_weights(shapes, cjk, r.seed, r.device,
                                   r.cfg["assumed"]["glyph_density"])
-    return Reference(r.cfg, weights, *pho, precision=precision)
+    cls = reference_class(r.cfg)
+    return cls(r.cfg, weights, *pho, precision=precision)
 
 
 def served_numbers(ref, vocab, sample, steps) -> Dict[str, float]:

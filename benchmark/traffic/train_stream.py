@@ -27,6 +27,7 @@ alone runs the reference.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import shutil
@@ -76,17 +77,14 @@ class Window:
 
 
 def program_config(cfg: Dict):
-    from realise_tpu_torch.config import config_for
+    """The port's config of the preset, with every key of the file that is
+    a field of ``RealiseConfig``: a field the file sets always reaches the
+    program."""
+    from realise_tpu_torch.config import RealiseConfig, config_for
 
-    keys = ("vocab_size", "hidden_size", "num_hidden_layers",
-            "num_attention_heads", "intermediate_size", "hidden_act",
-            "hidden_dropout_prob", "attention_probs_dropout_prob",
-            "max_position_embeddings", "type_vocab_size", "layer_norm_eps",
-            "pho_encoder", "pho_num_layers", "res_encoder", "num_fonts",
-            "use_traditional_font", "fusion", "out_num_layers",
-            "zero_out_positions", "head", "max_seq_length", "pho2_max_len",
-            "glyph_size", "dtype", "param_dtype")
-    return config_for(cfg["preset"], **{k: cfg[k] for k in keys})
+    fields = {f.name for f in dataclasses.fields(RealiseConfig)}
+    return config_for(cfg["preset"],
+                      **{k: v for k, v in cfg.items() if k in fields})
 
 
 def build_model(rcfg, cjk, seed, device, density):

@@ -105,6 +105,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    (which torch's AdamW without the decay must miss), two launches a
    step, and the time of both kernels, of the norm alone, of the plain path
    and of torch's fused AdamW (a yardstick) against 32 bytes an element;
+8d. (run after 8c) the head's masked cross-entropy kernels
+   (``csrc/masked_ce.cu``; they replace no ``pallas_call``) at B=256 and
+   S=32, 64, 128 (8192, 16384, 32768 rows of V=21128 bf16 logits, a
+   float32 bias, a quarter of the rows masked): the gold logits equal to
+   the plain version's, logz within ``CE_LOGZ_TOL``, dlogits within one
+   bf16 ulp of the plain backward's from the same logz, dbias the column
+   sum of the kernel's own dlogits; two calls the same bits; the time of
+   each kernel, of the plain version and of
+   ``torch.nn.functional.cross_entropy`` forward and backward (a yardstick)
+   against the bytes bound, and the peak memory of each; phase 8's steps
+   call each kernel once;
 9. eval and scoring: the trained model saved as a port checkpoint, loaded
    as ``cli/test`` loads it and scored by ``cli.common.evaluate_model`` on
    1024 synthetic sentences in batches of 32 with the serving kernels
@@ -1066,6 +1077,9 @@ def time_train_kernels(device, gen, card):
 # decay moves a decayed parameter by lr * wd = 2e-5 of its value, 20 times
 # the limit, so a kernel that left it out would fail.
 UPDATE_REL = 1e-6
+# The CE forward's logz against torch.logsumexp, relative to the largest
+# |logz|: the kernel sums exps (__expf) in an order of its own.
+CE_LOGZ_TOL = 2e-6
 UPDATE_LR, UPDATE_WD = 2e-3, 0.01
 
 
@@ -1208,6 +1222,124 @@ def update_kernels(device, card):
                        bound_ms=bound_ms, bound_by="bytes",
                        library_ms=library_ms, call_ms=call_ms)
         del models, opts, params, sums, grads, tables, ptrs
+        torch.cuda.empty_cache()
+    return row
+
+
+def ce_bytes(rows, v):
+    """Bytes the CE forward and backward must move at (rows, v) bf16 logits
+    with a float32 bias: the logits read once each, dlogits written once;
+    labels, mask, logz, gold and the bias."""
+    n = rows * v
+    return (2 * n + rows * (8 + 4 + 4) + 4 * v,
+            4 * n + rows * (8 + 4 + 4) + 4 * v + 4 * v)
+
+
+def ce_kernels(device, card, v=21128, batch=256):
+    """Phase 8d: ``csrc/masked_ce.cu`` at B=256 and S=32, 64, 128 against
+    the plain version on the card, two calls the same bits, then the times
+    (CUDA events, 20 calls, L2 flushed) of each kernel, both, the plain
+    version and F.cross_entropy's forward and backward (a yardstick the
+    port never calls) against the bytes bound, and the peak memory of a
+    forward and backward on each path. Returns the S=64 row."""
+    import torch
+    import torch.nn.functional as F
+
+    from realise_tpu_torch.ops.kernels import masked_ce as kce
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    row = {}
+    gen = torch.Generator(device=device).manual_seed(SEED + 50)
+    bias = torch.randn(v, generator=gen, device=device)
+    dsum = torch.ones((), device=device)
+    for s in (32, 64, 128):
+        rows = batch * s
+        logits = (torch.randn((rows, v), generator=gen, device=device)
+                  * 3).to(torch.bfloat16)
+        labels = torch.randint(0, v, (rows,), generator=gen, device=device)
+        labels[:2], labels[2:4] = 0, v - 1
+        m = (torch.rand(rows, generator=gen, device=device) > 0.25).float()
+        logz, gold = kce.masked_ce_fwd(logits, bias, labels)
+        want_logz, want_gold = kce.masked_ce_fwd_plain(logits, bias, labels)
+        dl, db = kce.masked_ce_bwd(logits, bias, labels, m, logz, dsum)
+        want_dl, _ = kce.masked_ce_bwd_plain(logits, bias, labels, m, logz,
+                                             dsum)
+        again = kce.masked_ce_fwd(logits, bias, labels)
+        again += kce.masked_ce_bwd(logits, bias, labels, m, again[0], dsum)
+        torch.cuda.synchronize()
+        logz_err = ((logz - want_logz).abs().max()
+                    / want_logz.abs().max()).item()
+        diff = (dl.float() - want_dl.float()).abs()
+        ulp = (torch.maximum(dl.float().abs(), want_dl.float().abs())
+               * 2.0 ** -7).clamp_min(1e-38)
+        ulps = (diff / ulp).masked_fill(diff == 0, 0).max().item()
+        flips = int(torch.count_nonzero(diff))
+        own = dl.float().sum(0)
+        db_err = ((db - own).abs().max() / own.abs().max()).item()
+        same = all(torch.equal(a, b) for a, b in zip((logz, gold, dl, db),
+                                                      again))
+        del again, want_dl, own
+        log(f"CE kernels B={batch} S={s} ({rows} rows): gold "
+            f"{'equal' if torch.equal(gold, want_gold) else 'DIFFERENT'}, "
+            f"logz {logz_err:.2e} (tol {CE_LOGZ_TOL}), dlogits {flips} "
+            f"elements differ, largest {ulps:.2f} bf16 ulp, dbias against "
+            f"its dlogits' column sum {db_err:.2e}, two calls "
+            f"{'the same bits' if same else 'DIFFERENT'}")
+        if (not torch.equal(gold, want_gold) or logz_err > CE_LOGZ_TOL
+                or ulps > 1.0 or db_err > 1e-5 or not same):
+            fail(f"CE kernels at {rows} rows: gold, logz, dlogits or dbias "
+                 f"off, or two calls differ")
+
+        def fwd():
+            kce.masked_ce_fwd(logits, bias, labels)
+
+        def bwd():
+            kce.masked_ce_bwd(logits, bias, labels, m, logz, dsum)
+
+        def both():
+            z, _ = kce.masked_ce_fwd(logits, bias, labels)
+            kce.masked_ce_bwd(logits, bias, labels, m, z, dsum)
+
+        def plain():
+            z, _ = kce.masked_ce_fwd_plain(logits, bias, labels)
+            kce.masked_ce_bwd_plain(logits, bias, labels, m, z, dsum)
+
+        def library():
+            x = logits.detach().requires_grad_(True)
+            loss = F.cross_entropy(x + bias.to(x.dtype), labels,
+                                   reduction="none")
+            (loss.float() * m).sum().backward()
+
+        peaks = {}
+        for name, fn in (("kernels", both), ("plain", plain),
+                         ("library", library)):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            fn()
+            torch.cuda.synchronize()
+            peaks[name] = (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+        fwd_ms, bwd_ms, ms = (time_ms(fn, flush) for fn in (fwd, bwd, both))
+        plain_ms = time_ms(plain, flush, iters=5)
+        library_ms = time_ms(library, flush)
+        fwd_b, bwd_b = ce_bytes(rows, v)
+        fwd_bound, bwd_bound = (1e3 * b / PEAK_BYTES for b in (fwd_b, bwd_b))
+        log(f"CE kernels B={batch} S={s}: forward {fwd_ms:.4f} ms (bound "
+            f"{fwd_bound:.4f}, {fwd_bound / fwd_ms:.1%}), backward "
+            f"{bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
+            f"{bwd_bound / bwd_ms:.1%}), both {ms:.4f} ms (bound "
+            f"{fwd_bound + bwd_bound:.4f}, bytes at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms, "
+            f"library (F.cross_entropy forward + backward) "
+            f"{library_ms:.4f} ms; peak memory above the inputs: kernels "
+            f"{peaks['kernels']:.3f} GiB, plain {peaks['plain']:.3f} GiB, "
+            f"library {peaks['library']:.3f} GiB [{card}]")
+        if s == 64:
+            row = dict(max_rel_err=logz_err, ms=ms, fwd_ms=fwd_ms,
+                       bwd_ms=bwd_ms, plain_ms=plain_ms,
+                       bound_ms=fwd_bound + bwd_bound, bound_by="bytes",
+                       library_ms=library_ms)
+        del logits, labels, m, logz, gold, want_logz, want_gold, dl, db
         torch.cuda.empty_cache()
     return row
 
@@ -1676,15 +1808,17 @@ def step_split(trainer, batch, label, card):
 def train(device, cfg, card):
     """Phase 8: the Trainer at full width in bf16 on the factorized streams;
     then the per-stream split of a B=32 and a B=256 step on the factorized
-    and on the per-token path. Returns (the launches of the train kernels
-    and of the update kernels (``clip_adamw``, the two together) over the
-    main run, the trainer)."""
+    and on the per-token path. Returns (the launches of the train kernels,
+    of the update kernels (``clip_adamw``, the two together) and of the CE
+    kernels (``masked_ce``, forward and backward together) over the main
+    run, the trainer)."""
     import math
 
     import torch
 
     from realise_tpu_torch.ops.kernels import adamw as kadamw
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
+    from realise_tpu_torch.ops.kernels import masked_ce as kce
     from realise_tpu_torch.training.trainer import Trainer
 
     layers = encoder_layers(cfg)
@@ -1706,7 +1840,9 @@ def train(device, cfg, card):
         f"{cfg.vocab_size} tokens")
     if not trainer.use_kernels:
         fail("the Trainer did not turn the kernels on for CUDA")
-    updates = (kadamw.global_norm_partials, kadamw.adamw_update)
+    # The update kernels, then the CE kernels: once each a step.
+    updates = (kadamw.global_norm_partials, kadamw.adamw_update,
+               kce.masked_ce_fwd, kce.masked_ce_bwd)
     for fn in tuple(tbt.KERNEL_WRAPPERS) + updates:
         fn.launches = 0
     for b, batches in ((32, small), (256, large)):
@@ -1726,15 +1862,15 @@ def train(device, cfg, card):
             warm = b == 32 and i == 0
             log(f"train: B={b} step {trainer.step}{' (warm-up)' if warm else ''}"
                 f": loss {loss:.6f}, {1e3 * dt:.3f} ms, {b / dt:.1f} sentences/s,"
-                f" launches {per_step}, update {per_update}")
+                f" launches {per_step}, update and CE {per_update}")
             if not math.isfinite(loss):
                 fail(f"non-finite loss at step {trainer.step}")
             if per_step != [layers] * 4:
                 fail(f"train kernels launched {per_step} times in a step, "
                      f"expected {layers} each")
-            if per_update != [1, 1]:
-                fail(f"update kernels launched {per_update} times in a step, "
-                     f"expected once each")
+            if per_update != [1, 1, 1, 1]:
+                fail(f"update and CE kernels launched {per_update} times in "
+                     f"a step, expected once each")
             if not warm:
                 times.append(dt)
         peak = torch.cuda.max_memory_allocated(device)
@@ -1751,8 +1887,8 @@ def train(device, cfg, card):
                              "train step B=256", iters=1)
     dt = (time.perf_counter() - t) / 2
     if [fn.launches - n for fn, n in zip(tuple(tbt.KERNEL_WRAPPERS) + updates,
-                                         before)] != [2 * layers] * 4 + [2, 2]:
-        fail("the profiled steps missed a train or update kernel launch")
+                                         before)] != [2 * layers] * 4 + [2] * 4:
+        fail("the profiled steps missed a train, update or CE kernel launch")
     busy = sum(ms for ms, _ in parts)
     log(f"train: profiled B=256 step: {busy:.3f} ms of kernels in "
         f"{1e3 * dt:.3f} ms on the host clock (profiler on), "
@@ -1760,7 +1896,8 @@ def train(device, cfg, card):
     for part_ms, kname in parts[:16]:
         log(f"  profile train step: {part_ms:.4f} ms {kname[:100]}")
     launches = {fn.__name__: fn.launches for fn in tbt.KERNEL_WRAPPERS}
-    launches["clip_adamw"] = sum(fn.launches for fn in updates)
+    launches["clip_adamw"] = sum(fn.launches for fn in updates[:2])
+    launches["masked_ce"] = sum(fn.launches for fn in updates[2:])
 
     # The split of a step by stream, CUDA events around each part, on the
     # factorized path and on the per-token one, same model and batches.
@@ -4590,7 +4727,7 @@ def main() -> int:
     t = time.perf_counter()
     # One compiler each, together: nvcc for the kernels, g++ for the
     # featurizer.
-    logs = build(["bert_block", "bert_block_train", "adamw",
+    logs = build(["bert_block", "bert_block_train", "adamw", "masked_ce",
                   "realise_featurizer"])
     log(f"build: {time.perf_counter() - t:.2f} s")
     for line in "".join(logs.values()).splitlines():
@@ -4613,6 +4750,7 @@ def main() -> int:
     rows.update(time_train_kernels(device, gen, card))
     time_backward_gemm(device, gen, card)
     update_row = update_kernels(device, card)
+    ce_row = ce_kernels(device, card)
     train_launches, trainer = train(device, cfg, card)
     launches.update(train_launches)
     check_train_paths(device, cfg)
@@ -4665,6 +4803,10 @@ def main() -> int:
                         source="realise_tpu_torch/csrc/adamw.cu",
                         replaces=None, launches=launches["clip_adamw"],
                         **update_row))
+    kernels.append(dict(name="masked_ce", route="cuda",
+                        source="realise_tpu_torch/csrc/masked_ce.cu",
+                        replaces=None, launches=launches["masked_ce"],
+                        **ce_row))
     log("worst |kernel-plain| over the checks: " + ", ".join(
         f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst.items())))
     log("worst relative |kernel-plain| of the train kernels: " + ", ".join(

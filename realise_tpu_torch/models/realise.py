@@ -80,6 +80,7 @@ from realise_tpu_torch.config import (
 from realise_tpu_torch.ops.bert import BertModel
 from realise_tpu_torch.ops.fusion import concat_fusion, gate_fusion, sum_fusion
 from realise_tpu_torch.ops.gru import gru_last_hidden, gru_last_hidden_factored
+from realise_tpu_torch.ops.kernels import masked_ce as kce
 from realise_tpu_torch.ops.layers import (
     ACTIVATIONS,
     dense,
@@ -99,44 +100,39 @@ class _MaskedCE(torch.autograd.Function):
     ``round(logits + bias rounded to their dtype)`` (the logits as they are
     without a bias), the gradient of the logits is emitted in their dtype
     and the bias gradient is the float32 column sum of that rounded
-    gradient."""
+    gradient. ``ops/kernels/masked_ce`` computes the rows: its kernels on
+    CUDA, where the backward runs under ``span('head+ce.bwd')``, its plain
+    versions on the CPU."""
 
     @staticmethod
-    def forward(ctx, logits, bias, labels, mask):
-        l32 = _biased32(logits, bias)
-        logz = torch.logsumexp(l32, dim=-1)
-        gold = l32.gather(-1, labels[:, None])[:, 0]
+    def forward(ctx, logits, bias, labels, mask, span):
+        logz, gold = kce.masked_ce_fwd(logits, bias, labels)
         m = mask.float()
+        ctx.span = span if logits.is_cuda else no_span
         ctx.save_for_backward(logits, bias, labels, m, logz)
         return ((logz - gold) * m).sum(), m.sum()
 
     @staticmethod
     def backward(ctx, dsum, _dcount):
         logits, bias, labels, m, logz = ctx.saved_tensors
-        p = torch.exp(_biased32(logits, bias) - logz[:, None])
-        p[torch.arange(p.shape[0], device=p.device), labels] -= 1.0
-        dlogits = (p * (dsum * m)[:, None]).to(logits.dtype)
-        dbias = None if bias is None else dlogits.float().sum(0)
-        return dlogits, dbias, None, None
-
-
-def _biased32(logits: torch.Tensor,
-              bias: Optional[torch.Tensor]) -> torch.Tensor:
-    if bias is None:
-        return logits.float()
-    b32 = bias.to(logits.dtype).float()
-    return (logits.float() + b32).to(logits.dtype).float()
+        with ctx.span("head+ce.bwd"):
+            dlogits, dbias = kce.masked_ce_bwd(logits, bias, labels, m, logz,
+                                               dsum)
+        return dlogits, dbias, None, None, None
 
 
 def masked_cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
                              loss_mask: torch.Tensor,
-                             bias: Optional[torch.Tensor] = None):
+                             bias: Optional[torch.Tensor] = None,
+                             span=no_span):
     """(B, S, V) unbiased logits, (V,) float32 head bias (None: the logits
     are the biased ones) → (loss sum, count) over the positions where
-    ``loss_mask`` is 1."""
+    ``loss_mask`` is 1. ``span``: the hook whose 'head+ce.bwd' brackets the
+    kernel backward."""
     v = logits.shape[-1]
     return _MaskedCE.apply(logits.reshape(-1, v), bias,
-                           labels.reshape(-1).long(), loss_mask.reshape(-1))
+                           labels.reshape(-1).long(), loss_mask.reshape(-1),
+                           span)
 
 
 class TiedClassifier(nn.Module):
@@ -637,7 +633,8 @@ class Realise(_TokenStreams):
                 out["gates"] = gates
             if has_loss:
                 out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
-                    logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
+                    logits_nb, batch["tgt_idx"], batch["loss_masks"], bias,
+                    span)
         return out
 
 
@@ -743,7 +740,8 @@ class RealisePretrain(_TokenStreams):
                 out["logits"] = logits_nb + bias.to(logits_nb.dtype)
             if has_loss:
                 out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
-                    logits_nb, batch["tgt_idx"], batch["loss_masks"], bias)
+                    logits_nb, batch["tgt_idx"], batch["loss_masks"], bias,
+                    span)
         return out
 
     def _classify_glyphs(self, char_idx: torch.Tensor,
@@ -760,7 +758,7 @@ class RealisePretrain(_TokenStreams):
             out = {} if self.training else {"logits": logits}
             out["loss_sum"], out["loss_count"] = masked_cross_entropy_sum(
                 logits[:, None], char_idx[:, None],
-                torch.ones_like(char_idx[:, None]))
+                torch.ones_like(char_idx[:, None]), span=self.span)
         return out
 
 

@@ -8,9 +8,13 @@
   with dropout, forward and backward (counterparts of
   ``realise_tpu/ops/pallas/bert_block_train.py``), CUDA C++ in
   ``csrc/bert_block_train.cu``.
+* :mod:`adamw` — the training step's update (division, clip, AdamW) in two
+  multi-tensor launches, ``csrc/adamw.cu``; no TPU counterpart.
+* :mod:`masked_ce` — the head's masked cross-entropy, forward and backward,
+  ``csrc/masked_ce.cu``; no TPU counterpart (XLA fuses the JAX VJP).
 
-Both CUDA sources share ``csrc/bert_block_common.cuh`` (the tensor-core and
-float32 GEMMs, the attention cores, LayerNorm rows, the dropout hash).
+The two block sources share ``csrc/bert_block_common.cuh`` (the tensor-core
+and float32 GEMMs, the attention cores, LayerNorm rows, the dropout hash).
 
 Each kernel has a plain PyTorch version in the same module. A wrapper takes
 the plain version for a CPU tensor only; for a CUDA tensor it launches its

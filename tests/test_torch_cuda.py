@@ -814,3 +814,162 @@ def test_trainer_updates_in_two_launches_a_step(cuda_device):
         tr.train_step(batch)
     assert launches() - before == 6
     assert rec.totals()["clip+adamw"]["device_ms"] > 0
+
+
+# ------------------------------------------------------- the masked CE kernels
+def _ce_inputs(device, dtype, rows, v, with_bias, seed=0):
+    """Logits of spread ~3 (a few rows much wider), a bias, labels with
+    rows at columns 0 and V-1, a mask with a quarter of the rows 0."""
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((rows, v), generator=gen) * 3
+    logits[::7] *= 8
+    labels = torch.randint(0, v, (rows,), generator=gen)
+    labels[:3] = 0
+    labels[3:6] = v - 1
+    mask = (torch.rand(rows, generator=gen) > 0.25).long()
+    mask[0] = mask[3] = 0
+    bias = torch.randn(v, generator=gen) if with_bias else None
+    dt = getattr(torch, dtype)
+    return (logits.to(device, dt), None if bias is None else bias.to(device),
+            labels.to(device), mask.to(device))
+
+
+def _ulp_err(got, want):
+    """Largest |got - want| over ulps of the larger of the two in bf16
+    (2^-7 of it at most) or float32 (2^-23)."""
+    eps = 2.0 ** -7 if want.dtype == torch.bfloat16 else 2.0 ** -23
+    g, w = got.float(), want.float()
+    scale = torch.maximum(g.abs(), w.abs()) * eps
+    diff = (g - w).abs()
+    return (diff / scale.clamp_min(1e-38)).masked_fill(diff == 0, 0).max().item()
+
+
+@pytest.mark.parametrize("v", [21128, 7607, 65537])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_masked_ce_kernels_match_plain(cuda_device, dtype, with_bias, v):
+    """The loss through ``masked_cross_entropy_sum`` (the kernels) against
+    the plain versions on the card, at the vocabulary's V (the 16-byte
+    route) and at ragged ones (the scalar route; 7607 and 65537 are odd),
+    301 rows (a ragged last chunk and group of rows): the gold logits the
+    same bits, logz and the loss sum within float32 summation order,
+    dlogits within one ulp of the plain backward from the same logz, masked
+    rows zero, and dbias the column sum of the kernel's own dlogits within
+    float32 summation order."""
+    from realise_tpu_torch.models.realise import masked_cross_entropy_sum
+    from realise_tpu_torch.ops.kernels import masked_ce as kce
+
+    rows = 301
+    logits, bias, labels, mask = _ce_inputs(cuda_device, dtype, rows, v,
+                                            with_bias)
+    logz, gold = kce.masked_ce_fwd(logits, bias, labels)
+    want_logz, want_gold = kce.masked_ce_fwd_plain(logits, bias, labels)
+    assert torch.equal(gold, want_gold)
+    assert _rel_err(logz, want_logz) <= 2e-6
+
+    x = logits.clone().requires_grad_(True)
+    b = None if bias is None else bias.clone().requires_grad_(True)
+    loss, count = masked_cross_entropy_sum(x[None], labels[None], mask[None], b)
+    (0.37 * loss).backward()
+    m = mask.float()
+    want_loss = ((want_logz - want_gold) * m).sum()
+    assert abs(loss.item() - want_loss.item()) <= 1e-5 * abs(want_loss.item())
+    assert count.item() == m.sum().item()
+    dsum = torch.tensor(0.37, device=cuda_device)
+    want_dl, want_db = kce.masked_ce_bwd_plain(logits, bias, labels, m, logz,
+                                               dsum)
+    assert x.grad.dtype == logits.dtype
+    assert _ulp_err(x.grad, want_dl) <= 1.0
+    assert torch.count_nonzero(x.grad[mask == 0]) == 0
+    if with_bias:
+        own = x.grad.float().sum(0)
+        assert _rel_err(b.grad, own) <= 1e-5
+        assert _rel_err(b.grad, want_db) <= 2.0 ** -8
+    else:
+        assert want_db is None
+
+
+def test_masked_ce_kernels_give_the_same_bits_twice(cuda_device):
+    """Two calls of both kernels at 4096 rows of the vocabulary's V in bf16
+    with a bias: logz, gold, dlogits and dbias the same bits."""
+    from realise_tpu_torch.ops.kernels import masked_ce as kce
+
+    logits, bias, labels, mask = _ce_inputs(cuda_device, "bfloat16", 4096,
+                                            21128, True, seed=1)
+    m = mask.float()
+    dsum = torch.ones((), device=cuda_device)
+    runs = []
+    for _ in range(2):
+        logz, gold = kce.masked_ce_fwd(logits, bias, labels)
+        runs.append((logz, gold) + kce.masked_ce_bwd(logits, bias, labels, m,
+                                                     logz, dsum))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_masked_ce_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """float16 or 3-D or non-contiguous logits, a bfloat16 or misshapen
+    bias, int32 labels or labels on the CPU, a float64 mask in the
+    backward; a label out of range reads a NaN gold logit."""
+    from realise_tpu_torch.ops.kernels import masked_ce as kce
+
+    dev = cuda_device
+    logits, bias, labels, mask = _ce_inputs(dev, "bfloat16", 8, 64, True)
+    m = mask.float()
+    with pytest.raises(ValueError, match="dtype"):
+        kce.masked_ce_fwd(logits.half(), bias, labels)
+    with pytest.raises(ValueError, match="3-D"):
+        kce.masked_ce_fwd(logits[None], bias, labels)
+    with pytest.raises(ValueError, match="contiguous"):
+        kce.masked_ce_fwd(torch.zeros((64, 8), device=dev,
+                                      dtype=torch.bfloat16).t(), bias, labels)
+    with pytest.raises(ValueError, match="dtype"):
+        kce.masked_ce_fwd(logits, bias.bfloat16(), labels)
+    with pytest.raises(ValueError, match="shape"):
+        kce.masked_ce_fwd(logits, bias[:63], labels)
+    with pytest.raises(ValueError, match="dtype"):
+        kce.masked_ce_fwd(logits, bias, labels.int())
+    with pytest.raises(ValueError, match="on cpu"):
+        kce.masked_ce_fwd(logits, bias, labels.cpu())
+    logz, _ = kce.masked_ce_fwd(logits, bias, labels)
+    with pytest.raises(ValueError, match="dtype"):
+        kce.masked_ce_bwd(logits, bias, labels, m.double(), logz,
+                          torch.ones((), device=dev))
+    bad = labels.clone()
+    bad[2] = 64
+    logz, gold = kce.masked_ce_fwd(logits, bias, bad)
+    assert torch.isnan(gold[2]) and not torch.isnan(gold[[0, 1, 3]]).any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_train_step_launches_each_ce_kernel_once(cuda_device, dtype):
+    """The Trainer on the card: each step calls the CE forward and backward
+    once each, and 'head+ce.bwd' holds device time once a step."""
+    from realise_tpu_torch.ops.kernels import masked_ce as kce
+
+    cfg = _tiny_cfg(dtype)
+    gen = torch.Generator().manual_seed(0)
+    model = Realise(cfg, generator=gen)
+    model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
+                                     generator=gen) < 0.5).float())
+    tr = Trainer(cfg, model, use_kernels=True, device=cuda_device)
+    rec = SpanRecorder(cuda_device)
+    tr.model.span = rec.span
+    rng = np.random.RandomState(7)
+    b, s = 4, 20
+    masks = np.ones((b, s), np.int64)
+    masks[2, 12:] = 0
+    batch = {"src_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "tgt_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "masks": masks, "loss_masks": masks.copy(),
+             "pho_idx": rng.randint(1, 30, (b, s, cfg.pho2_max_len)),
+             "pho_lens": rng.randint(0, cfg.pho2_max_len + 1, (b, s))}
+    before = (kce.masked_ce_fwd.launches, kce.masked_ce_bwd.launches)
+    for _ in range(3):
+        loss = tr.train_step(batch)
+    assert np.isfinite(float(loss))
+    assert (kce.masked_ce_fwd.launches - before[0],
+            kce.masked_ce_bwd.launches - before[1]) == (3, 3)
+    spans = rec.totals()
+    assert spans["head+ce.bwd"]["count"] == 3
+    assert spans["head+ce.bwd"]["device_ms"] > 0

@@ -217,26 +217,26 @@ class BertLayer(nn.Module):
 
     def kernel_params(self, dtype: torch.dtype) -> Tuple[Dict, Dict]:
         """The packed (attention, ffn) parameters of the block kernels in
-        ``dtype``, kept until a parameter changes (dtype, device or an
-        in-place write, which bumps the tensor's version)."""
+        ``dtype`` (``bert_block.pack_attention`` / ``pack_ffn`` of
+        :meth:`block_params`), kept until a parameter changes (dtype, device
+        or an in-place write, which bumps the tensor's version; the CUDA
+        update kernel bumps it too)."""
         params = list(self.parameters())
         key = (dtype,) + tuple((p.data_ptr(), p._version) for p in params)
         if self._packed is None or self._packed[0] != key:
-            att = self.attention
+            att, ffn = self.block_params()
             self._packed = (
                 key,
-                bert_block.pack_attention_params(
-                    att.self.query, att.self.key, att.self.value,
-                    att.output.dense, att.output.LayerNorm, dtype),
-                bert_block.pack_ffn_params(
-                    self.intermediate.dense, self.output.dense,
-                    self.output.LayerNorm, dtype))
+                bert_block.pack_attention(
+                    [att[k] for k in bert_block.ATTN_PARAMS], dtype),
+                bert_block.pack_ffn(
+                    [ffn[k] for k in bert_block.FFN_PARAMS], dtype))
         return self._packed[1], self._packed[2]
 
-    def train_params(self) -> Tuple[Dict, Dict]:
-        """The live parameters the train blocks take, by the names of
-        ``bert_block_train.ATTN_PARAMS`` / ``FFN_PARAMS`` (no copy, no
-        detach: their gradients reach the modules)."""
+    def block_params(self) -> Tuple[Dict, Dict]:
+        """The live parameters of the block kernels, by the names of
+        ``bert_block.ATTN_PARAMS`` / ``FFN_PARAMS`` (no copy, no detach:
+        the train blocks' gradients reach the modules)."""
         att, sa = self.attention, self.attention.self
         return ({"q_weight": sa.query.weight, "q_bias": sa.query.bias,
                  "k_weight": sa.key.weight, "k_bias": sa.key.bias,
@@ -281,7 +281,7 @@ class BertLayer(nn.Module):
         h_rate = cfg.hidden_dropout_prob
         if use_kernels:
             seed = layer_seed(generator)
-            p_att, p_ffn = self.train_params()
+            p_att, p_ffn = self.block_params()
             hidden = bert_block_train.attention_block_train(
                 hidden, p_att, attn_bias, seed, cfg.num_attention_heads,
                 cfg.layer_norm_eps, p_rate, h_rate, span=span)

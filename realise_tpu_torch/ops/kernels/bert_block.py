@@ -6,8 +6,9 @@ CUDA C++ for sm_90a (``csrc/bert_block.cu``, see the notes there for the
 design and the bound). For a CPU tensor a wrapper runs its plain PyTorch
 version; for a CUDA tensor it launches the kernel or raises.
 
-Parameters arrive packed (see :func:`pack_attention_params` and
-:func:`pack_ffn_params`): weights in torch's (out, in) layout and in the
+Parameters arrive packed by :func:`pack_attention` and :func:`pack_ffn`, the
+one layout of every block kernel, serving and training
+(``bert_block_train``): weights in torch's (out, in) layout and in the
 activation dtype, the q/k/v weights stacked into one (3H, H) matrix; biases
 and LayerNorm parameters in float32.
 
@@ -26,7 +27,7 @@ differ from the jnp sub-blocks ``realise_tpu.ops.bert._self_attention`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +38,12 @@ from realise_tpu_torch.ops.kernels import (
     KERNEL_DTYPES,
 )
 from realise_tpu_torch.ops.layers import dense, layer_norm
+
+# The parameters of one BertLayer, in the order the packers take them
+# (ops/bert.BertLayer.block_params has them by these names).
+ATTN_PARAMS = ("q_weight", "q_bias", "k_weight", "k_bias", "v_weight",
+               "v_bias", "out_weight", "out_bias", "ln_weight", "ln_bias")
+FFN_PARAMS = ("w1", "b1", "w2", "b2", "ln_weight", "ln_bias")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -57,35 +64,29 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def pack_attention_params(query, key, value, output, layer_norm,
-                          dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """nn.Linear/nn.LayerNorm modules of one attention sub-block → the packed
-    dict the wrappers take (detached; no copy where nothing changes)."""
-    return _detached({
-        "qkv_weight": torch.cat([query.weight, key.weight, value.weight]
-                                ).to(dtype),
-        "qkv_bias": torch.cat([query.bias, key.bias, value.bias]).float(),
-        "out_weight": output.weight.to(dtype),
-        "out_bias": output.bias.float(),
-        "ln_weight": layer_norm.weight.float(),
-        "ln_bias": layer_norm.bias.float(),
-    })
+def pack_attention(params: Sequence[torch.Tensor],
+                   dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The ATTN_PARAMS tensors, in that order → the layout the kernels read:
+    [Wq|Wk|Wv] stacked (3H, H) and Wo in ``dtype``; biases and LayerNorm
+    float32. Detached; a tensor that needs no cast or concatenation is its
+    parameter's storage, not a copy."""
+    wq, bq, wk, bk, wv, bv, wo, bo, g, beta = params
+    packed = {"qkv_weight": torch.cat([wq, wk, wv]).to(dtype),
+              "qkv_bias": torch.cat([bq, bk, bv]).float(),
+              "out_weight": wo.to(dtype), "out_bias": bo.float(),
+              "ln_weight": g.float(), "ln_bias": beta.float()}
+    return {k: t.detach().contiguous() for k, t in packed.items()}
 
 
-def pack_ffn_params(intermediate, output, layer_norm,
-                    dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    return _detached({
-        "w1": intermediate.weight.to(dtype),
-        "b1": intermediate.bias.float(),
-        "w2": output.weight.to(dtype),
-        "b2": output.bias.float(),
-        "ln_weight": layer_norm.weight.float(),
-        "ln_bias": layer_norm.bias.float(),
-    })
-
-
-def _detached(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().contiguous() for k, v in p.items()}
+def pack_ffn(params: Sequence[torch.Tensor],
+             dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The FFN_PARAMS tensors, in that order → W1 and W2 in ``dtype``;
+    biases and LayerNorm float32 (as :func:`pack_attention`)."""
+    w1, b1, w2, b2, g, beta = params
+    packed = {"w1": w1.to(dtype), "b1": b1.float(), "w2": w2.to(dtype),
+              "b2": b2.float(), "ln_weight": g.float(),
+              "ln_bias": beta.float()}
+    return {k: t.detach().contiguous() for k, t in packed.items()}
 
 
 def _mask_rows(mask_bias: torch.Tensor, b: int, s: int) -> torch.Tensor:
@@ -176,7 +177,7 @@ def attention_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
                     eps: float = 1e-12) -> torch.Tensor:
     """Fused q/k/v projection → attention → output projection → residual LN.
 
-    x: (B, S, H); p: :func:`pack_attention_params`; mask_bias: (B, 1, 1, S)
+    x: (B, S, H); p: :func:`pack_attention`; mask_bias: (B, 1, 1, S)
     or (B, S) additive bias (−10000 on padding)."""
     if x.device.type == "cpu":
         return attention_block_plain(x, p, mask_bias, num_heads, eps)
@@ -216,7 +217,7 @@ def ffn_block(x: torch.Tensor, p: Dict[str, torch.Tensor],
               eps: float = 1e-12) -> torch.Tensor:
     """Fused intermediate → exact gelu → output → residual LN.
 
-    x: (B, S, H); p: :func:`pack_ffn_params`."""
+    x: (B, S, H); p: :func:`pack_ffn`."""
     if x.device.type == "cpu":
         return ffn_block_plain(x, p, eps)
     _check_x(x)

@@ -28,7 +28,10 @@ For a CPU tensor a wrapper runs its plain PyTorch version; for a CUDA tensor
 it launches its kernel (CUDA C++ for sm_90a, ``csrc/bert_block_train.cu``) or
 raises. Parameters arrive as the live ``nn.Parameter``s (torch (out, in)
 layout, float32), so their gradients are float32 whatever the activation
-dtype. The mask bias and the seed get no gradient.
+dtype. Each Function packs them once, in its forward
+(``bert_block.pack_attention`` / ``pack_ffn``, the serving kernels' layout
+too), and its backward reads that saved pack. The mask bias and the seed
+get no gradient.
 
 **Dropout masks** are the counter hash of the JAX kernels, bit for bit: a
 murmur3 fmix32 stream id per (seed, site, example[, head]) (:func:`site_base`)
@@ -52,17 +55,21 @@ erf form (the Pallas kernels use an Abramowitz–Stegun erf, |err| ≤ 1.5e-7).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Tuple
 
 import torch
 
 from realise_tpu_torch.ops.kernels import ATTN_MAX_HEAD_DIM, ATTN_MAX_SEQ
 from realise_tpu_torch.ops.kernels.bert_block import (
+    ATTN_PARAMS,
+    FFN_PARAMS,
     _check,
     _check_x,
     _stream,
     attention_context,
     attention_probs,
+    pack_attention,
+    pack_ffn,
 )
 from realise_tpu_torch.ops.layers import M32, dense, layer_norm, mix32, mul32
 from realise_tpu_torch.utils.profiler import no_span
@@ -82,12 +89,6 @@ FORWARD_SITES = {EPI_RESID_ROUND_DROP: SITE_ATTN_OUT,
                  EPI_RESID_F32_DROP: SITE_FFN_OUT}
 _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
-
-# Parameter order of the two autograd Functions: the live nn.Parameters of
-# one BertLayer (see ops/bert.BertLayer.train_params).
-ATTN_PARAMS = ("q_weight", "q_bias", "k_weight", "k_bias", "v_weight",
-               "v_bias", "out_weight", "out_bias", "ln_weight", "ln_bias")
-FFN_PARAMS = ("w1", "b1", "w2", "b2", "ln_weight", "ln_bias")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LIB = None
@@ -139,29 +140,6 @@ def probs_keep_mask(seed: int, b: int, num_heads: int, s: int, keep: float,
     head = torch.arange(num_heads, dtype=torch.int64, device=device)[None, :]
     return keep_mask(site_base(seed, SITE_PROBS, ex, head)[..., None, None],
                      s, s, keep)
-
-
-# -------------------------------------------------------- packed params
-def pack_attention(params: Sequence[torch.Tensor],
-                   dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The ATTN_PARAMS tensors → the layout the kernel reads: [Wq|Wk|Wv]
-    stacked (3H, H) and Wo in ``dtype``; biases and LayerNorm float32."""
-    wq, bq, wk, bk, wv, bv, wo, bo, g, beta = params
-    return {"qkv_weight": torch.cat([wq, wk, wv]).to(dtype).contiguous(),
-            "qkv_bias": torch.cat([bq, bk, bv]).float().contiguous(),
-            "out_weight": wo.to(dtype).contiguous(),
-            "out_bias": bo.float().contiguous(),
-            "ln_weight": g.float().contiguous(),
-            "ln_bias": beta.float().contiguous()}
-
-
-def pack_ffn(params: Sequence[torch.Tensor],
-             dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    w1, b1, w2, b2, g, beta = params
-    return {"w1": w1.to(dtype).contiguous(), "b1": b1.float().contiguous(),
-            "w2": w2.to(dtype).contiguous(), "b2": b2.float().contiguous(),
-            "ln_weight": g.float().contiguous(),
-            "ln_bias": beta.float().contiguous()}
 
 
 # ------------------------------------------------------- plain versions
@@ -688,10 +666,14 @@ class _AttentionTrain(torch.autograd.Function):
     def forward(ctx, x, mask_bias, seed, num_heads, eps, p_rate, h_rate,
                 span, *params):
         x = x.contiguous()
-        y = attention_train_forward(x, pack_attention(params, x.dtype),
-                                    mask_bias, seed, num_heads, eps, p_rate,
-                                    h_rate)
-        ctx.save_for_backward(x, mask_bias, *params)
+        pack = pack_attention(params, x.dtype)
+        y = attention_train_forward(x, pack, mask_bias, seed, num_heads, eps,
+                                    p_rate, h_rate)
+        # The pack, not the parameters: the backward packs nothing, and a
+        # float32 pack that is a parameter's storage keeps autograd's check
+        # of in-place writes.
+        ctx.save_for_backward(x, mask_bias, *pack.values())
+        ctx.pack_keys = tuple(pack)
         ctx.args = (seed, num_heads, eps, p_rate, h_rate)
         ctx.span = span
         return y
@@ -699,11 +681,11 @@ class _AttentionTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         with ctx.span("encoder.attn_bwd"):
-            x, mask_bias, *params = ctx.saved_tensors
+            x, mask_bias, *pack = ctx.saved_tensors
             seed, num_heads, eps, p_rate, h_rate = ctx.args
             dx, g = attention_train_backward(
-                x, dy.contiguous(), pack_attention(params, x.dtype),
-                mask_bias, seed, num_heads, eps, p_rate, h_rate)
+                x, dy.contiguous(), dict(zip(ctx.pack_keys, pack)), mask_bias,
+                seed, num_heads, eps, p_rate, h_rate)
             h = x.shape[-1]
             dwq, dwk, dwv = g["qkv_weight"].split(h)
             dbq, dbk, dbv = g["qkv_bias"].split(h)
@@ -716,9 +698,10 @@ class _FfnTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, eps, h_rate, span, *params):
         x = x.contiguous()
-        y, z = ffn_train_forward(x, pack_ffn(params, x.dtype), seed, eps,
-                                 h_rate)
-        ctx.save_for_backward(x, z, *params)
+        pack = pack_ffn(params, x.dtype)
+        y, z = ffn_train_forward(x, pack, seed, eps, h_rate)
+        ctx.save_for_backward(x, z, *pack.values())
+        ctx.pack_keys = tuple(pack)
         ctx.args = (seed, eps, h_rate)
         ctx.span = span
         return y
@@ -726,11 +709,11 @@ class _FfnTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         with ctx.span("encoder.ffn_bwd"):
-            x, z, *params = ctx.saved_tensors
+            x, z, *pack = ctx.saved_tensors
             seed, eps, h_rate = ctx.args
             dx, g = ffn_train_backward(x, z, dy.contiguous(),
-                                       pack_ffn(params, x.dtype), seed, eps,
-                                       h_rate)
+                                       dict(zip(ctx.pack_keys, pack)), seed,
+                                       eps, h_rate)
         return (dx, None, None, None, None, g["w1"], g["b1"], g["w2"],
                 g["b2"], g["ln_weight"], g["ln_bias"])
 

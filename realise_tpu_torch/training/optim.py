@@ -72,7 +72,8 @@ class AdamW(torch.optim.AdamW):
     gradient for every parameter, and none of amsgrad, maximize, capturable
     or differentiable. The gradients are left as they were. The state keeps
     torch's format, ``state[p]`` with ``step``, ``exp_avg`` and
-    ``exp_avg_sq`` (the moments updated in place), but the kernel path
+    ``exp_avg_sq`` (the moments updated in place, and their versions and
+    the parameters' bumped as an in-place op bumps them), but the kernel path
     counts the steps once per group and writes them into each
     ``state[p]['step']`` only in :meth:`state_dict` (and when pickled).
     ``split``: the parameters that are a rank's slice of a tensor-parallel
@@ -231,6 +232,11 @@ class AdamW(torch.optim.AdamW):
                 float(group["lr"]), group["betas"], group["eps"],
                 group["weight_decay"], self._steps[i]))
         kernels.adamw_update(tables, grads, count, max_norm, scalars, norm)
+        # The kernel writes through raw pointers: bump the versions an
+        # in-place op would, so that caches keyed on them (the block kernels'
+        # packs, BertLayer.kernel_params) and autograd see the write.
+        torch.autograd.graph.increment_version(
+            tables.params + tables.moments[0] + tables.moments[1])
         return loss
 
 

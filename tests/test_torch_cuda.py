@@ -73,14 +73,10 @@ def _rel_err(got, want):
 
 
 def _train_params(layer):
-    att, sa = layer.attention, layer.attention.self
-    return ([sa.query.weight, sa.query.bias, sa.key.weight, sa.key.bias,
-             sa.value.weight, sa.value.bias, att.output.dense.weight,
-             att.output.dense.bias, att.output.LayerNorm.weight,
-             att.output.LayerNorm.bias],
-            [layer.intermediate.dense.weight, layer.intermediate.dense.bias,
-             layer.output.dense.weight, layer.output.dense.bias,
-             layer.output.LayerNorm.weight, layer.output.LayerNorm.bias])
+    """The layer's live parameters in ATTN_PARAMS and FFN_PARAMS order."""
+    att, ffn = layer.block_params()
+    return ([att[k] for k in tbt.ATTN_PARAMS],
+            [ffn[k] for k in tbt.FFN_PARAMS])
 
 
 def _tiny_cfg(dtype):
@@ -814,6 +810,56 @@ def test_trainer_updates_in_two_launches_a_step(cuda_device):
         tr.train_step(batch)
     assert launches() - before == 6
     assert rec.totals()["clip+adamw"]["device_ms"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_after_a_train_step_reads_the_new_weights(cuda_device, dtype):
+    """The update kernel writes through raw pointers, and AdamW.step bumps
+    the versions it wrote: every parameter's ``_version`` rises in a train
+    step, so the block kernels' cached packs (``BertLayer.kernel_params``)
+    follow the update. eval_step → train_step → eval_step gives the logits,
+    bit for bit, of a fresh Trainer loaded with the trained state dict."""
+    cfg = _tiny_cfg(dtype)
+
+    def trainer():
+        gen = torch.Generator().manual_seed(0)
+        model = Realise(cfg, generator=gen)
+        model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
+                                         generator=gen) < 0.5).float())
+        return Trainer(cfg, model, learning_rate=1e-3, use_kernels=True,
+                       device=cuda_device)
+
+    def eval_logits(tr):
+        seen = []
+        hook = tr.model.register_forward_hook(
+            lambda module, args, out: seen.append(out["logits"].clone()))
+        try:
+            tr.eval_step(batch)
+        finally:
+            hook.remove()
+        return seen[0]
+
+    rng = np.random.RandomState(8)
+    b, s = 4, 20
+    masks = np.ones((b, s), np.int64)
+    masks[1, 13:] = 0
+    batch = {"src_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "tgt_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "masks": masks, "loss_masks": masks.copy(),
+             "pho_idx": rng.randint(1, 30, (b, s, cfg.pho2_max_len)),
+             "pho_lens": rng.randint(0, cfg.pho2_max_len + 1, (b, s))}
+    tr = trainer()
+    first = eval_logits(tr)
+    params = list(tr.model.parameters())
+    before = [p._version for p in params]
+    tr.train_step(batch)
+    assert all(p._version > v for p, v in zip(params, before))
+    got = eval_logits(tr)
+    fresh = trainer()
+    fresh.model.load_state_dict(tr.model_state_dict())
+    want = eval_logits(fresh)
+    assert not torch.equal(first, want)
+    assert torch.equal(got, want)
 
 
 # ------------------------------------------------------- the masked CE kernels

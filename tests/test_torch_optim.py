@@ -15,6 +15,7 @@ import torch
 
 from realise_tpu_torch.config import PHO2_VOCAB_SIZE, config_for
 from realise_tpu_torch.models import realise as trealise
+from realise_tpu_torch.ops import bert as tbert
 from realise_tpu_torch.ops.kernels import adamw as kadamw
 from realise_tpu_torch.training import optim as toptim
 from realise_tpu_torch.training.trainer import Trainer
@@ -135,6 +136,52 @@ def test_subclass_state_dict_is_torchs():
     for ps in (pb, pc, pd):
         for p, q in zip(ps, pa):
             assert torch.equal(p, q)
+
+
+def test_kernel_step_bumps_versions_and_the_pack_cache_follows(monkeypatch):
+    """The update kernel writes through raw pointers; ``AdamW.step`` bumps
+    the version of every tensor it wrote, the parameters and both moments,
+    so a BertLayer's cached kernel pack is made again from the new weights.
+    The kernel path runs here with stand-ins that write through ``.data``,
+    which bumps no version, as a raw pointer does not."""
+
+    class Tables:  # the fields of kadamw.Tables that the optimizer reads
+        def __init__(self, params, exp_avgs, exp_avg_sqs, groups, n_split=0):
+            self.params = list(params)
+            self.moments = (list(exp_avgs), list(exp_avg_sqs))
+            self.split_chunks = 0
+
+        def gradient_pointers(self, grads):
+            return list(grads)
+
+    def adamw_update(tables, grads, count, max_norm, scalars, norm_out=None):
+        for p, g, m, v in zip(tables.params, grads, *tables.moments):
+            m.data.add_(g)
+            v.data.add_(g * g)
+            p.data.sub_(0.1 * g)
+
+    monkeypatch.setattr(kadamw, "Tables", Tables)
+    monkeypatch.setattr(kadamw, "adamw_update", adamw_update)
+    monkeypatch.setattr(toptim.AdamW, "_on_cuda", lambda self: True)
+    layer = tbert.BertLayer(_model()[0])
+    opt = toptim.make_optimizer(layer, 1e-3)
+    cached = layer.kernel_params(torch.float32)
+    gen = torch.Generator().manual_seed(2)
+    params = list(layer.parameters())
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen)
+    before = [p._version for p in params]
+    opt.clip(torch.tensor(1.0), None)
+    opt.step()
+    assert all(p._version > v for p, v in zip(params, before))
+    assert all(opt.state[p][k]._version > 0 for p in params
+               for k in ("exp_avg", "exp_avg_sq"))
+    att, ffn = layer.kernel_params(torch.float32)
+    assert att is not cached[0] and ffn is not cached[1]
+    sa = layer.attention.self
+    assert torch.equal(att["qkv_weight"], torch.cat(
+        [sa.query.weight, sa.key.weight, sa.value.weight]).detach())
+    assert torch.equal(ffn["w2"], layer.output.dense.weight.detach())
 
 
 @pytest.mark.parametrize("numels", [

@@ -206,6 +206,29 @@ def test_ffn_block_train_matches_pallas(b, s, h, heads, inter, rate):
                                    np.asarray(want_g[sub][leaf]), atol=ATOL)
 
 
+def test_train_blocks_pack_once_a_step(monkeypatch):
+    """One forward and backward of both train blocks packs each block's
+    parameters once: the backward reads the forward's pack."""
+    calls = {"attention": 0, "ffn": 0}
+
+    def counted(name, pack):
+        def run(params, dtype):
+            calls[name] += 1
+            return pack(params, dtype)
+        return run
+
+    monkeypatch.setattr(tbt, "pack_attention",
+                        counted("attention", tbt.pack_attention))
+    monkeypatch.setattr(tbt, "pack_ffn", counted("ffn", tbt.pack_ffn))
+    att, ffn = _port_params(_jax_layer(7, 16, 32))
+    x = torch.tensor(_inputs(2, 8, 16, seed=3)[0], requires_grad=True)
+    h = tbt.attention_block_train(x, att, torch.zeros((2, 8)), 5, 2, 1e-12,
+                                  0.1, 0.1)
+    tbt.ffn_block_train(h, ffn, 5, 1e-12, 0.1).square().sum().backward()
+    assert calls == {"attention": 1, "ffn": 1}
+    assert all(p.grad is not None for p in [*att.values(), *ffn.values()])
+
+
 def test_ffn_forward_saves_rounded_z():
     """z is the pre-LN sum rounded to the activation dtype (bf16 here), as
     the Pallas forward stores it, and the backward reads that z."""

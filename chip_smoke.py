@@ -73,8 +73,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    card on the factorized streams for 1 + 5 steps at B=32 and 2 steps at
    B=256, then one more B=256 step under the profiler (device time by
    kernel name); every loss must be finite, every encoder layer must have
-   gone through the four train kernels each step and every step through
-   the two update kernels once each; then the split of a B=32
+   gone through the four train kernels each step, every step through
+   the two update kernels once each and the CharResNet's 15 BatchNorms
+   through the BatchNorm kernels forward and backward; the device kernels
+   of the non-vectorised ``elementwise_kernel<128, 2>`` in one B=256 step
+   are attributed to the spans, autograd nodes and ops that launched them;
+   then the split of a B=32
    and a B=256 step by stream (CUDA events around each part) on the
    factorized and on the per-token path, with kernel time, host clock and
    peak memory; then, in float32 at dropout 0 on one B=32 batch, the kernel
@@ -116,6 +120,18 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``torch.nn.functional.cross_entropy`` forward and backward (a yardstick)
    against the bytes bound, and the peak memory of each; phase 8's steps
    call each kernel once;
+8e. (run after 8d) the CharResNet's training BatchNorm kernels
+   (``csrc/batch_norm.cu``; they replace no ``pallas_call``) over the 15
+   BatchNorms of the full-width ``resnet`` (each block's first BatchNorm
+   with its ReLU, its tail's two with the add and the ReLU), bf16, weighted
+   rows (a twelfth of them 0), at 1920, 2816 and 4608 rows (the row
+   buckets of the step's ~1,900, ~2,900 and ~4,100 distinct glyphs):
+   outputs within one bf16 ulp of the plain chain's, dx within one ulp of
+   its largest value, dweight and dbias within 1e-5, two calls the same
+   bits; the kernels' device time forward and backward against the bytes
+   bound, and the time of the forward, the backward, both through
+   autograd, the plain chain and ``F.batch_norm`` (training, unweighted; a
+   yardstick) with its ReLU and add, forward and backward;
 9. eval and scoring: the trained model saved as a port checkpoint, loaded
    as ``cli/test`` loads it and scored by ``cli.common.evaluate_model`` on
    1024 synthetic sentences in batches of 32 with the serving kernels
@@ -516,6 +532,49 @@ def kernel_breakdown(fn, label, iters=5, attempts=3):
             f"device time (attempt {attempt} of {attempts}, "
             f"{len(prof.key_averages())} host events)")
     return []
+
+
+# PyTorch's non-vectorised elementwise kernel (broadcasts, dtype casts).
+ELEMENTWISE_BROADCAST = "elementwise_kernel<128, 2"
+
+
+def kernel_owners(fn, pattern, iters=1):
+    """[(ms per call, owner)] of the device kernels of fn whose name holds
+    ``pattern``, largest first: owner = the innermost span or autograd node
+    around the op that launched them, the outermost op under it, that op
+    and its input shapes (torch.profiler with host and device activities;
+    one warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True,
+                 schedule=schedule(wait=0, warmup=1, active=iters,
+                                   repeat=1)) as prof:
+        for _ in range(iters + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    owners = {}
+    for evt in prof.events():
+        us = sum(k.duration for k in getattr(evt, "kernels", ())
+                 if pattern in k.name)
+        if not us:
+            continue
+        chain, e = [], evt
+        while e is not None:
+            chain.append(e.name)
+            e = e.cpu_parent
+        chain = [n for n in reversed(chain)
+                 if not n.startswith("ProfilerStep")]
+        outer = [i for i, n in enumerate(chain) if not n.startswith("aten::")]
+        top = outer[-1] if outer else -1
+        ops = chain[top + 1:] or [evt.name]
+        owner = " | ".join([chain[top] if outer else "-", ops[0], evt.name,
+                            str(evt.input_shapes)])
+        owners[owner] = owners.get(owner, 0.0) + us / iters / 1e3
+    return sorted(((ms, o) for o, ms in owners.items()), reverse=True)
 
 
 def bound(name, b, s):
@@ -1344,6 +1403,187 @@ def ce_kernels(device, card, v=21128, batch=256):
     return row
 
 
+def bn_layers(hidden=H):
+    """(C, H*W) of each block of the full-width ``resnet`` CharResNet: its
+    first BatchNorm's input, and its tail's two (residual and shortcut)."""
+    from realise_tpu_torch.ops.resnet import _channels
+
+    return [(c, (16 >> i) ** 2) for i, c in enumerate(_channels("resnet",
+                                                                hidden))]
+
+
+def bn_bytes(rows, hidden=H):
+    """Bytes the 15 BatchNorms of the CharResNet must move at ``rows`` bf16
+    rows: forward, each input read once and each output written once (the
+    first BatchNorm x and y, the tail x, x2 and y); backward, dy and the
+    inputs read once (the ReLU's mask is a function of them) and dx
+    written once."""
+    fwd = bwd = 0
+    for c, hw in bn_layers(hidden):
+        n = rows * c * hw
+        fwd += 2 * (2 * n) + 2 * (3 * n)
+        bwd += 2 * (3 * n) + 2 * (5 * n)
+    return fwd, bwd
+
+
+def bn_kernels(device, card, row_counts=(1920, 2816, 4608)):
+    """Phase 8e: ``csrc/batch_norm.cu`` over the 15 BatchNorms of the
+    full-width CharResNet, bf16, weighted rows, against the plain chain on
+    the card (outputs within one bf16 ulp, dx within one ulp of its
+    largest value, dweight and dbias within 1e-5: the sums' orders differ),
+    two calls the same bits, then the times (CUDA events, 20
+    calls, L2 flushed) of the forward, the backward, both through autograd,
+    the plain chain (5 calls) and F.batch_norm's (a yardstick the port
+    never calls), and the kernels' device time (the profiler), against the
+    bytes bound. Returns the 2816-row row."""
+    import torch
+    import torch.nn.functional as F
+
+    from realise_tpu_torch.ops.kernels import batch_norm as kbn
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 60)
+    row = {}
+    for rows in row_counts:
+        w = torch.randint(0, 6, (rows,), generator=gen, device=device).float()
+        w[::12] = 0
+        blocks = []
+        for c, hw in bn_layers():
+            side = int(hw ** 0.5)
+
+            def rand(scale=1.0, shift=0.0):
+                return (torch.randn((rows, c, side, side), generator=gen,
+                                    device=device) * scale
+                        + shift).to(torch.bfloat16)
+
+            bns = [torch.nn.BatchNorm2d(c).to(device).train()
+                   for _ in range(3)]
+            blocks.append(dict(x=rand(2, 1), h=rand(), sc=rand(1.5, -0.5),
+                               dy1=rand(), dy2=rand(), bns=bns))
+
+        def fwd():
+            out = []
+            for b in blocks:
+                out.append(kbn.bn_train_fwd((b["x"],), b["bns"][:1], w))
+                out.append(kbn.bn_train_fwd((b["h"], b["sc"]), b["bns"][1:],
+                                            w))
+            return out
+
+        fwd_out = fwd()
+
+        def bwd():
+            out = []
+            for b, (one, two) in zip(blocks, zip(fwd_out[::2],
+                                                 fwd_out[1::2])):
+                bns = b["bns"]
+                out.append(kbn.bn_train_bwd(b["dy1"], (b["x"],),
+                                            (bns[0].weight,), one[1], w))
+                out.append(kbn.bn_train_bwd(
+                    b["dy2"], (b["h"], b["sc"]),
+                    (bns[1].weight, bns[2].weight), two[1], w))
+            return out
+
+        def chain(kernel):
+            """Every block's two calls forward and backward through autograd:
+            the kernels' wrappers or the plain chain."""
+            out = []
+            for b in blocks:
+                bns = b["bns"]
+                xs = [b[k].detach().requires_grad_(True)
+                      for k in ("x", "h", "sc")]
+                for bn in bns:
+                    bn.zero_grad(set_to_none=True)
+                if kernel:
+                    y1 = kbn.batch_norm_relu(bns[0], xs[0], w)
+                    y2 = kbn.batch_norm_add_relu(bns[1], xs[1], bns[2],
+                                                 xs[2], w)
+                else:
+                    y1 = kbn.batch_norm_relu_plain(bns[0], xs[0], w)
+                    y2 = kbn.batch_norm_add_relu_plain(bns[1], xs[1], bns[2],
+                                                       xs[2], w)
+                torch.autograd.backward([y1, y2], [b["dy1"], b["dy2"]])
+                out.append([y1, y2] + [x.grad for x in xs]
+                           + [t for bn in bns for t in (bn.weight.grad,
+                                                        bn.bias.grad)])
+            return out
+
+        got, want = chain(True), chain(False)
+        again = chain(True)
+        torch.cuda.synchronize()
+        ulps, dx_rel, rel, same = 0.0, 0.0, 0.0, True
+        for g_blk, w_blk, a_blk in zip(got, want, again):
+            for i, (a, b) in enumerate(zip(g_blk, w_blk)):
+                err = ((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp_min(1e-30)).item()
+                if i < 2:  # y1, y2: bf16, one ulp of each element
+                    diff = (a.float() - b.float()).abs()
+                    ulp = (torch.maximum(a.float().abs(), b.float().abs())
+                           * 2.0 ** -7).clamp_min(1e-38)
+                    ulps = max(ulps, (diff / ulp).masked_fill(diff == 0, 0)
+                               .max().item())
+                elif i < 5:  # dx, dh, dsc: bf16
+                    dx_rel = max(dx_rel, err)
+                else:
+                    rel = max(rel, err)
+            same = same and all(torch.equal(a, b)
+                                for a, b in zip(g_blk, a_blk))
+        del got, want, again
+        log(f"BN kernels {rows} rows (15 BatchNorms, bf16, weighted): "
+            f"outputs within {ulps:.2f} bf16 ulp of the plain chain's, dx "
+            f"{dx_rel:.2e} of its largest value (tol 2^-7, one bf16 ulp), "
+            f"dweight and dbias {rel:.2e} (tol 1e-5), two calls "
+            f"{'the same bits' if same else 'DIFFERENT'}")
+        if ulps > 1.0 or dx_rel > 2.0 ** -7 or rel > 1e-5 or not same:
+            fail(f"BN kernels at {rows} rows: outputs, gradients or "
+                 f"determinism off")
+
+        def library():
+            for b in blocks:
+                bns = b["bns"]
+                xs = [b[k].detach().requires_grad_(True)
+                      for k in ("x", "h", "sc")]
+                ys = [F.batch_norm(x, bn.running_mean, bn.running_var,
+                                   bn.weight, bn.bias, training=True)
+                      for x, bn in zip(xs, bns)]
+                torch.autograd.backward(
+                    [torch.relu(ys[0]), torch.relu(ys[1] + ys[2])],
+                    [b["dy1"], b["dy2"]])
+
+        fwd_ms = time_ms(fwd, flush)
+        bwd_ms = time_ms(bwd, flush)
+        # The kernels' own device time (the events above also hold the
+        # card's waits for the host between the small late blocks' calls).
+        parts = kernel_breakdown(lambda: (fwd(), bwd()),
+                                 f"BN kernels {rows} rows", iters=3)
+        device_ms = sum(ms for ms, _ in parts)
+        ms = time_ms(lambda: chain(True), flush)
+        plain_ms = time_ms(lambda: chain(False), flush, iters=5)
+        library_ms = time_ms(library, flush)
+        fwd_b, bwd_b = bn_bytes(rows)
+        fwd_bound, bwd_bound = (1e3 * b / PEAK_BYTES for b in (fwd_b, bwd_b))
+        bound_ms = fwd_bound + bwd_bound
+        log(f"BN kernels {rows} rows: forward {fwd_ms:.4f} ms (bound "
+            f"{fwd_bound:.4f}, {fwd_bound / fwd_ms:.1%}), backward "
+            f"{bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
+            f"{bwd_bound / bwd_ms:.1%}); the kernels' device time forward "
+            f"+ backward {device_ms:.4f} ms ({device_ms / bound_ms:.2f}x "
+            f"the bound); both through autograd {ms:.4f} ms "
+            f"(bound {bound_ms:.4f}, {ms / bound_ms:.2f}x; bytes at "
+            f"{PEAK_BYTES / 1e12:.2f} TB/s); plain chain {plain_ms:.4f} ms, "
+            f"library (F.batch_norm, unweighted, + ReLU and add, forward + "
+            f"backward) {library_ms:.4f} ms [{card}]")
+        for part_ms, kname in parts[:12]:
+            log(f"  BN kernels {rows} rows: {part_ms:.4f} ms {kname[:110]}")
+        if rows == 2816:
+            row = dict(max_rel_err=rel, ms=ms, fwd_ms=fwd_ms, bwd_ms=bwd_ms,
+                       device_ms=device_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by="bytes", library_ms=library_ms)
+        del blocks, fwd_out
+        torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------- featurizer, daemon
 def check_featurizer(native_corrector, requests, card):
     """Phase 5b: the native and the Python ``featurize_raw`` give the same
@@ -1809,17 +2049,20 @@ def train(device, cfg, card):
     """Phase 8: the Trainer at full width in bf16 on the factorized streams;
     then the per-stream split of a B=32 and a B=256 step on the factorized
     and on the per-token path. Returns (the launches of the train kernels,
-    of the update kernels (``clip_adamw``, the two together) and of the CE
-    kernels (``masked_ce``, forward and backward together) over the main
-    run, the trainer)."""
+    of the update kernels (``clip_adamw``, the two together), of the CE
+    kernels (``masked_ce``, forward and backward together) and of the
+    BatchNorm kernels (``batch_norm``, the BatchNorms through the forward
+    and through the backward) over the main run, the trainer)."""
     import math
 
     import torch
 
     from realise_tpu_torch.ops.kernels import adamw as kadamw
+    from realise_tpu_torch.ops.kernels import batch_norm as kbn
     from realise_tpu_torch.ops.kernels import bert_block_train as tbt
     from realise_tpu_torch.ops.kernels import masked_ce as kce
     from realise_tpu_torch.training.trainer import Trainer
+    from realise_tpu_torch.utils.profiler import SpanRecorder
 
     layers = encoder_layers(cfg)
     t0 = time.perf_counter()
@@ -1840,9 +2083,14 @@ def train(device, cfg, card):
         f"{cfg.vocab_size} tokens")
     if not trainer.use_kernels:
         fail("the Trainer did not turn the kernels on for CUDA")
-    # The update kernels, then the CE kernels: once each a step.
+    # The update kernels, then the CE kernels: once each a step; then the
+    # BatchNorm kernels: each BatchNorm of the CharResNet once a step.
     updates = (kadamw.global_norm_partials, kadamw.adamw_update,
-               kce.masked_ce_fwd, kce.masked_ce_bwd)
+               kce.masked_ce_fwd, kce.masked_ce_bwd, kbn.bn_train_fwd,
+               kbn.bn_train_bwd)
+    bns = sum(isinstance(m, torch.nn.BatchNorm2d)
+              for m in model.resnet.modules())
+    want_update = [1, 1, 1, 1, bns, bns]
     for fn in tuple(tbt.KERNEL_WRAPPERS) + updates:
         fn.launches = 0
     for b, batches in ((32, small), (256, large)):
@@ -1868,9 +2116,9 @@ def train(device, cfg, card):
             if per_step != [layers] * 4:
                 fail(f"train kernels launched {per_step} times in a step, "
                      f"expected {layers} each")
-            if per_update != [1, 1, 1, 1]:
-                fail(f"update and CE kernels launched {per_update} times in "
-                     f"a step, expected once each")
+            if per_update != want_update:
+                fail(f"update, CE and BatchNorm kernels launched "
+                     f"{per_update} times in a step, expected {want_update}")
             if not warm:
                 times.append(dt)
         peak = torch.cuda.max_memory_allocated(device)
@@ -1886,18 +2134,32 @@ def train(device, cfg, card):
     parts = kernel_breakdown(lambda: trainer.train_step(large[-1]),
                              "train step B=256", iters=1)
     dt = (time.perf_counter() - t) / 2
+    want = [2 * layers] * 4 + [2] * 4 + [2 * bns] * 2
     if [fn.launches - n for fn, n in zip(tuple(tbt.KERNEL_WRAPPERS) + updates,
-                                         before)] != [2 * layers] * 4 + [2] * 4:
-        fail("the profiled steps missed a train, update or CE kernel launch")
+                                         before)] != want:
+        fail("the profiled steps missed a train, update, CE or BatchNorm "
+             "kernel launch")
     busy = sum(ms for ms, _ in parts)
     log(f"train: profiled B=256 step: {busy:.3f} ms of kernels in "
         f"{1e3 * dt:.3f} ms on the host clock (profiler on), "
         f"{len(parts)} kernel names")
     for part_ms, kname in parts[:16]:
         log(f"  profile train step: {part_ms:.4f} ms {kname[:100]}")
+    plain_span, model.span = model.span, SpanRecorder(device).span
+    try:
+        owners = kernel_owners(lambda: trainer.train_step(large[-1]),
+                               ELEMENTWISE_BROADCAST)
+    finally:
+        model.span = plain_span
+    log(f"train: the B=256 step's {ELEMENTWISE_BROADCAST}> kernels, "
+        f"{sum(ms for ms, _ in owners):.3f} ms in {len(owners)} places; "
+        f"by span or autograd node | op | launching op | its input shapes:")
+    for part_ms, owner in owners[:12]:
+        log(f"  {part_ms:.4f} ms {owner}")
     launches = {fn.__name__: fn.launches for fn in tbt.KERNEL_WRAPPERS}
     launches["clip_adamw"] = sum(fn.launches for fn in updates[:2])
-    launches["masked_ce"] = sum(fn.launches for fn in updates[2:])
+    launches["masked_ce"] = sum(fn.launches for fn in updates[2:4])
+    launches["batch_norm"] = sum(fn.launches for fn in updates[4:])
 
     # The split of a step by stream, CUDA events around each part, on the
     # factorized path and on the per-token one, same model and batches.
@@ -4728,7 +4990,7 @@ def main() -> int:
     # One compiler each, together: nvcc for the kernels, g++ for the
     # featurizer.
     logs = build(["bert_block", "bert_block_train", "adamw", "masked_ce",
-                  "realise_featurizer"])
+                  "batch_norm", "realise_featurizer"])
     log(f"build: {time.perf_counter() - t:.2f} s")
     for line in "".join(logs.values()).splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
@@ -4751,6 +5013,7 @@ def main() -> int:
     time_backward_gemm(device, gen, card)
     update_row = update_kernels(device, card)
     ce_row = ce_kernels(device, card)
+    bn_row = bn_kernels(device, card)
     train_launches, trainer = train(device, cfg, card)
     launches.update(train_launches)
     check_train_paths(device, cfg)
@@ -4807,6 +5070,10 @@ def main() -> int:
                         source="realise_tpu_torch/csrc/masked_ce.cu",
                         replaces=None, launches=launches["masked_ce"],
                         **ce_row))
+    kernels.append(dict(name="batch_norm", route="cuda",
+                        source="realise_tpu_torch/csrc/batch_norm.cu",
+                        replaces=None, launches=launches["batch_norm"],
+                        **bn_row))
     log("worst |kernel-plain| over the checks: " + ", ".join(
         f"{k} {d} {v:.3e}" for (k, d), v in sorted(worst.items())))
     log("worst relative |kernel-plain| of the train kernels: " + ", ".join(

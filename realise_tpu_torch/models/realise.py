@@ -392,10 +392,12 @@ class _TokenStreams(nn.Module):
         return getattr(torch, self.cfg.dtype)
 
     # ------------------------------------------------------------ streams
-    def res_features(self, flat_ids: torch.Tensor) -> torch.Tensor:
-        """(N,) token ids → (N, H) CharResNet features in the activation dtype."""
+    def res_features(self, flat_ids: torch.Tensor,
+                     use_kernels: bool = False) -> torch.Tensor:
+        """(N,) token ids → (N, H) CharResNet features in the activation
+        dtype; ``use_kernels``: the training-mode BatchNorm kernels."""
         images = self.char_images_multifonts[flat_ids].to(self.dtype)
-        return self.resnet(images)
+        return self.resnet(images, use_kernels=use_kernels)
 
     def gru_features(self, pho_idx: torch.Tensor,
                      pho_lens: torch.Tensor) -> torch.Tensor:
@@ -419,8 +421,8 @@ class _TokenStreams(nn.Module):
     def _factorized_conv(self, src_idx: torch.Tensor,
                          rows: Optional[torch.Tensor] = None,
                          inverse: Optional[torch.Tensor] = None,
-                         counts: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         counts: Optional[torch.Tensor] = None,
+                         use_kernels: bool = False) -> torch.Tensor:
         """The CharResNet over distinct glyph rows, gathered per token
         (``_factorized_conv`` of the JAX package): the call's own rows
         (:meth:`conv_rows`: ``rows`` (U,) of the conv table, each token's
@@ -430,7 +432,8 @@ class _TokenStreams(nn.Module):
         of the per-token batch (rows absent from the call count 0); over
         the whole table the counts are summed in the graph, and float32
         sums of ones are exact up to 2²⁴, so they are the same bits
-        whatever order ``index_add_`` adds in."""
+        whatever order ``index_add_`` adds in. ``use_kernels``: the
+        training-mode BatchNorm kernels."""
         weights = None
         if rows is None:
             inverse = (src_idx if self.res_uniq_inverse is None
@@ -449,10 +452,11 @@ class _TokenStreams(nn.Module):
             images = self.char_images_multifonts[first]
             if self.training:
                 weights = counts.float()
-        feats = self.resnet(images.to(self.dtype), weights)
+        feats = self.resnet(images.to(self.dtype), weights, use_kernels)
         return table_gather(feats, inverse)
 
-    def _glyph_features(self, batch, tables, per_token) -> torch.Tensor:
+    def _glyph_features(self, batch, tables, per_token,
+                        use_kernels=False) -> torch.Tensor:
         """(B, S, H) raw CharResNet features of the batch's tokens: from the
         'res' table, the factorized conv or the per-token conv."""
         src_idx = batch["src_idx"]
@@ -463,8 +467,9 @@ class _TokenStreams(nn.Module):
         if rows is not None or (not per_token and b * s > self.res_conv_rows):
             return self._factorized_conv(src_idx, rows,
                                          batch.get("res_inverse"),
-                                         batch.get("res_counts"))
-        return self.res_features(src_idx.reshape(-1)).reshape(b, s, -1)
+                                         batch.get("res_counts"), use_kernels)
+        return self.res_features(src_idx.reshape(-1),
+                                 use_kernels).reshape(b, s, -1)
 
     def _pho_inputs(self, batch, tables, per_token) -> torch.Tensor:
         """(B, S, H) input embeddings of the pho BERT: the pho2 GRU's last
@@ -548,10 +553,12 @@ class Realise(_TokenStreams):
         :func:`precompute_inference_tables` (eval mode only).
         ``use_kernels``: run every encoder layer through the fused block
         kernels (ops/kernels/bert_block.py in eval mode, bert_block_train.py
-        in training mode). ``return_gates``: the (B, S, N) gates of a gate
-        fusion. ``generator``: the host generator of the training mode's
-        dropout keys and layer seeds. ``per_token``: run both streams per
-        token slot, never factorized (the reference path, for comparison)."""
+        in training mode) and, in training mode, the CharResNet's BatchNorms
+        through ops/kernels/batch_norm.py. ``return_gates``: the (B, S, N)
+        gates of a gate fusion. ``generator``: the host generator of the
+        training mode's dropout keys and layer seeds. ``per_token``: run
+        both streams per token slot, never factorized (the reference path,
+        for comparison)."""
         cfg, dtype = self.cfg, self.dtype
         mask, src_idx = batch["masks"], batch["src_idx"]
         if self.training and tables:
@@ -569,7 +576,8 @@ class Realise(_TokenStreams):
         res = None
         if cfg.with_res:
             with span("glyph"):
-                res = self._glyph_features(batch, tables, per_token)
+                res = self._glyph_features(batch, tables, per_token,
+                                           use_kernels)
                 if not merged:
                     ln = self.resnet_layernorm
                     res = layer_norm(res, ln.weight, ln.bias,
@@ -720,13 +728,15 @@ class RealisePretrain(_TokenStreams):
         loss_masks come too. ``use_kernels``, ``generator`` and
         ``per_token`` as in :meth:`Realise.forward`."""
         if self.pho_bert is None:
-            return self._classify_glyphs(batch["char_idx"], generator)
+            return self._classify_glyphs(batch["char_idx"], generator,
+                                         use_kernels)
         cfg, span = self.cfg, self.span
         with span("gru"):
             hidden = self._pho_inputs(batch, {}, per_token)
         if cfg.with_res:
             with span("glyph"):
-                hidden = hidden + self._glyph_features(batch, {}, per_token)
+                hidden = hidden + self._glyph_features(batch, {}, per_token,
+                                                       use_kernels)
         with span("pho_bert"):
             seq = self.pho_bert(inputs_embeds=hidden,
                                 attention_mask=batch["masks"],
@@ -745,11 +755,12 @@ class RealisePretrain(_TokenStreams):
         return out
 
     def _classify_glyphs(self, char_idx: torch.Tensor,
-                         generator: Optional[torch.Generator]
+                         generator: Optional[torch.Generator],
+                         use_kernels: bool = False
                          ) -> Dict[str, torch.Tensor]:
         cfg = self.cfg
         with self.span("glyph"):
-            feats = self.res_features(char_idx)
+            feats = self.res_features(char_idx, use_kernels)
             if self.training and generator is not None:
                 feats = dropout(feats, cfg.hidden_dropout_prob,
                                 random_key(generator))

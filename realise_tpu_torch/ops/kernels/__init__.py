@@ -12,6 +12,9 @@
   multi-tensor launches, ``csrc/adamw.cu``; no TPU counterpart.
 * :mod:`masked_ce` — the head's masked cross-entropy, forward and backward,
   ``csrc/masked_ce.cu``; no TPU counterpart (XLA fuses the JAX VJP).
+* :mod:`batch_norm` — the CharResNet's training-mode BatchNorm with its
+  ReLU and the block tail's add, forward and backward,
+  ``csrc/batch_norm.cu``; no TPU counterpart (XLA fuses the jnp BatchNorm).
 
 The two block sources share ``csrc/bert_block_common.cuh`` (the tensor-core
 and float32 GEMMs, the attention cores, LayerNorm rows, the dropout hash).

@@ -17,7 +17,10 @@ variance (torch's and the JAX package's rule; updated in place), or with
 per-row weights, the statistics of a batch holding each row that many
 times (the factorized conv stream's occurrence counts). The
 module names are the reference's (``res_block{k}.residual_function.{0,1,3,4}``,
-``res_block{k}.shortcut.{0,1}``). ``CharResNet`` starts in eval mode.
+``res_block{k}.shortcut.{0,1}``). ``CharResNet`` starts in eval mode. With
+``use_kernels`` in training mode, each block's BatchNorms, its ReLUs and
+the tail's add run through ``ops/kernels/batch_norm`` (CUDA kernels, whose
+plain version is this module's eager functions).
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from realise_tpu_torch.ops.kernels import batch_norm as kbn
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -166,8 +171,11 @@ class BasicBlock(nn.Module):
             self.shortcut = nn.Sequential()
 
     def forward(self, x: torch.Tensor,
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weights: Optional[torch.Tensor] = None,
+                use_kernels: bool = False) -> torch.Tensor:
         rf = self.residual_function
+        if use_kernels and self.training:
+            return self._kernel_forward(x, weights)
         h = torch.relu(batch_norm(rf[1], conv2d(rf[0], x), weights))
         h = batch_norm(rf[4], conv2d(rf[3], h), weights)
         sc = x
@@ -176,10 +184,25 @@ class BasicBlock(nn.Module):
                             weights)
         return torch.relu(h + sc)
 
+    def _kernel_forward(self, x, weights):
+        """The training forward with each BatchNorm, its ReLU and the tail's
+        add in ``ops/kernels/batch_norm`` (the plain version on the CPU)."""
+        if not len(self.shortcut):
+            raise ValueError("the BatchNorm kernels fuse the tail's two "
+                             "BatchNorms: a block without a shortcut "
+                             "convolution runs with use_kernels=False")
+        rf, sc = self.residual_function, self.shortcut
+        h = kbn.batch_norm_relu(rf[1], conv2d(rf[0], x), weights)
+        return kbn.batch_norm_add_relu(rf[4], conv2d(rf[3], h), sc[1],
+                                       conv2d(sc[0], x), weights)
+
 
 class CharResNet(nn.Module):
     """(N, F, 32, 32) glyphs → (N, hidden) features; ``weights``: optional
-    (N,) row multiplicities of the training-mode BatchNorm statistics."""
+    (N,) row multiplicities of the training-mode BatchNorm statistics;
+    ``use_kernels``: in training mode, each block's BatchNorms, ReLUs and
+    tail add through ``ops/kernels/batch_norm`` (its plain version for CPU
+    tensors)."""
 
     def __init__(self, in_channels: int, hidden_size: int = 768,
                  variant: str = "resnet"):
@@ -191,7 +214,8 @@ class CharResNet(nn.Module):
         self.eval()
 
     def forward(self, x: torch.Tensor,
-                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weights: Optional[torch.Tensor] = None,
+                use_kernels: bool = False) -> torch.Tensor:
         for block in self.children():
-            x = block(x, weights)
+            x = block(x, weights, use_kernels)
         return x.reshape(x.shape[0], -1)

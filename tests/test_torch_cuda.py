@@ -1019,3 +1019,255 @@ def test_train_step_launches_each_ce_kernel_once(cuda_device, dtype):
     spans = rec.totals()
     assert spans["head+ce.bwd"]["count"] == 3
     assert spans["head+ce.bwd"]["device_ms"] > 0
+
+
+# ------------------------------------------------------ the BatchNorm kernels
+# Each BatchNorm's (C, H*W) in the ``resnet`` CharResNet at H 768 (blocks 1-5)
+# and in ``resnet1`` (its blocks 3 and 4; 1 and 2 are resnet's).
+BN_SHAPES = [(64, 256), (128, 64), (256, 16), (512, 4), (768, 1), (192, 16),
+             (192, 4)]
+
+
+def _f32_ulps(got, want):
+    """Largest |got - want| in float32 ulps of the larger of the two."""
+    g, w = got.double(), want.double()
+    big = torch.maximum(g.abs(), w.abs()).float()
+    ulp = (torch.nextafter(big, torch.full_like(big, float("inf"))) - big)
+    diff = (g - w).abs()
+    return (diff / ulp.double()).masked_fill(diff == 0, 0).max().item()
+
+
+def _bn_module(c, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    bn = torch.nn.BatchNorm2d(c, eps=1e-5).train()
+    with torch.no_grad():
+        bn.weight.normal_(1.0, 0.2, generator=gen)
+        bn.bias.normal_(0.0, 0.2, generator=gen)
+        bn.running_mean.normal_(0.0, 0.2, generator=gen)
+        bn.running_var.uniform_(0.5, 1.5, generator=gen)
+    return bn.to(device)
+
+
+def _bn_inputs(device, dtype, rows, c, hw, weighted, seed):
+    """x (rows, C, H, W) of spread ~2 around 1, channel 0 around 50 times
+    its spread (what a ReLU and many rows of one glyph give); counts with
+    zeros (the pad rows of a row bucket); the output's gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    side = int(hw ** 0.5)
+    x = torch.randn((rows, c, side, side), generator=gen) * 2 + 1
+    x[:, 0] = 50 + torch.randn((rows, side, side), generator=gen)
+    w = None
+    if weighted:
+        w = torch.randint(0, 6, (rows,), generator=gen).float()
+        w[-1] = 0
+        w[0] = 3
+    dy = torch.randn((rows, c, side, side), generator=gen)
+    dt = getattr(torch, dtype)
+    return (x.to(device, dt), None if w is None else w.to(device),
+            dy.to(device, dt))
+
+
+def _plain_stats(x, w):
+    """batch_norm_train's float32 mean and var of x."""
+    x64 = x.double()
+    if w is None:
+        return (x64.mean(dim=(0, 2, 3)).float(),
+                x64.var(dim=(0, 2, 3), unbiased=False).float())
+    w64 = w.double()
+    n = torch.clamp(w64.sum() * (x.shape[2] * x.shape[3]), min=1.0)
+    mean = torch.einsum("nchw,n->c", x64, w64) / n
+    var = torch.clamp(torch.einsum("nchw,n->c", x64 * x64, w64) / n
+                      - mean * mean, min=0.0)
+    return mean.float(), var.float()
+
+
+def _bn_run(fn, bns, xs, w, dy):
+    """fn's output, x and parameter gradients and running statistics."""
+    xs = [x.clone().requires_grad_(True) for x in xs]
+    for bn in bns:
+        bn.zero_grad(set_to_none=True)
+    y = fn(*xs)
+    y.backward(dy)
+    out = [y] + [x.grad for x in xs]
+    for bn in bns:
+        out += [bn.weight.grad, bn.bias.grad, bn.running_mean.clone(),
+                bn.running_var.clone(), bn.num_batches_tracked.clone()]
+    return out
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows", [1, 37, 2816])
+@pytest.mark.parametrize("c, hw", BN_SHAPES)
+def test_batch_norm_kernels_match_plain(cuda_device, c, hw, rows, dtype,
+                                        weighted):
+    """relu(bn(x)) and a block's tail relu(bn(x) + bn2(x2)) through the
+    kernels against the eager chain of ops/resnet.py on the card, at each
+    BatchNorm's (C, H*W) of both CharResNets and 1, 37 and 2816 rows, with
+    row weights (zeros among them) and without. Statistics within 2
+    float32 ulps (both in float64, rounded: only the order of the sums
+    differs), inv and shift the plain formulas' bits from them; the running
+    statistics within 2 ulps; outputs within one ulp of their dtype (the
+    same rounding points: a flip where the statistics' last bit moved);
+    dx and the parameter gradients, float32, within 1e-5 of each tensor's
+    largest value (float32 sums in other orders); bf16 dx within one bf16
+    ulp of its largest value (where the ReLU masks dy, dx is the small
+    correction w/T * (sum(g) + xhat * sum(g*xhat)) alone, whose sums'
+    order can move its rounding by several of its own ulps)."""
+    from realise_tpu_torch.ops.kernels import batch_norm as kbn
+
+    x, w, dy = _bn_inputs(cuda_device, dtype, rows, c, hw, weighted, rows + c)
+    x2, _, _ = _bn_inputs(cuda_device, dtype, rows, c, hw, False, rows + c + 1)
+    for tail in (False, True):
+        bns_k = [_bn_module(c, 3 + j, cuda_device) for j in range(1 + tail)]
+        bns_p = [copy.deepcopy(bn) for bn in bns_k]
+        xs = (x, x2) if tail else (x,)
+
+        def kernel(*xs):
+            if tail:
+                return kbn.batch_norm_add_relu(bns_k[0], xs[0], bns_k[1],
+                                               xs[1], w)
+            return kbn.batch_norm_relu(bns_k[0], xs[0], w)
+
+        def plain(*xs):
+            if tail:
+                return kbn.batch_norm_add_relu_plain(bns_p[0], xs[0],
+                                                     bns_p[1], xs[1], w)
+            return kbn.batch_norm_relu_plain(bns_p[0], xs[0], w)
+
+        before = (kbn.bn_train_fwd.launches, kbn.bn_train_bwd.launches)
+        got = _bn_run(kernel, bns_k, xs, w, dy)
+        assert (kbn.bn_train_fwd.launches - before[0],
+                kbn.bn_train_bwd.launches - before[1]) == (len(xs),) * 2
+        want = _bn_run(plain, bns_p, xs, w, dy)
+
+        # The statistics and the apply's coefficients.
+        for j, xj in enumerate(xs):
+            bn = _bn_module(c, 3 + j, cuda_device)
+            _, coefs = kbn.bn_train_fwd((xj,), (bn,), w)
+            cf = coefs[0].view(torch.float32)
+            mean, var, inv, shift = cf[:c], cf[c:2 * c], cf[2 * c:3 * c], \
+                cf[3 * c:4 * c]
+            want_mean, want_var = _plain_stats(xj, w)
+            assert _f32_ulps(mean, want_mean) <= 2
+            assert _f32_ulps(var, want_var) <= 2
+            want_inv = torch.rsqrt(var + 1e-5) * bn.weight
+            assert torch.equal(inv, want_inv)
+            assert torch.equal(shift, bn.bias - mean * want_inv)
+
+        y, dxs = got[0], got[1:1 + len(xs)]
+        assert y.dtype == x.dtype
+        assert _ulp_err(y, want[0]) <= 1.0
+        for a, b in zip(dxs, want[1:1 + len(xs)]):
+            assert a.dtype == x.dtype
+            if dtype == "bfloat16":
+                assert _rel_err(a, b) <= 2.0 ** -7
+            else:
+                assert _rel_err(a, b) <= 1e-5
+        per_bn = got[1 + len(xs):]
+        for j in range(len(xs)):
+            dg, db, rm, rv, nbt = per_bn[5 * j:5 * j + 5]
+            wdg, wdb, wrm, wrv, wnbt = want[1 + len(xs) + 5 * j:][:5]
+            assert _rel_err(dg, wdg) <= 1e-5
+            assert _rel_err(db, wdb) <= 1e-5
+            assert _f32_ulps(rm, wrm) <= 2
+            assert _f32_ulps(rv, wrv) <= 2
+            assert int(nbt) == int(wnbt) == 1
+
+
+def test_batch_norm_kernels_give_the_same_bits_twice(cuda_device):
+    """Two calls of the forward and backward at block 1's shape, 2816
+    weighted rows in bf16, a tail: the output, the statistics and every
+    gradient the same bits."""
+    from realise_tpu_torch.ops.kernels import batch_norm as kbn
+
+    x, w, dy = _bn_inputs(cuda_device, "bfloat16", 2816, 64, 256, True, 5)
+    x2, _, _ = _bn_inputs(cuda_device, "bfloat16", 2816, 64, 256, False, 6)
+    runs = []
+    for _ in range(2):
+        bns = [_bn_module(64, 3 + j, cuda_device) for j in range(2)]
+        y, coefs = kbn.bn_train_fwd((x, x2), bns, w)
+        runs.append([y, *coefs, *(bn.running_mean for bn in bns),
+                     *(bn.running_var for bn in bns)]
+                    + [t for ts in kbn.bn_train_bwd(
+                        dy, (x, x2), [bn.weight for bn in bns], coefs, w)
+                       for t in ts])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_batch_norm_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """float16, 3-D or non-contiguous x, x2 of another shape, float64 or
+    misshapen row weights, weights on the CPU, a float64 BatchNorm, no
+    rows."""
+    from realise_tpu_torch.ops.kernels import batch_norm as kbn
+
+    dev = cuda_device
+    x, w, _ = _bn_inputs(dev, "bfloat16", 6, 8, 16, True, 0)
+    bn = _bn_module(8, 0, dev)
+    with pytest.raises(ValueError, match="dtype"):
+        kbn.bn_train_fwd((x.half(),), (bn,), w)
+    with pytest.raises(ValueError, match="3-D"):
+        kbn.bn_train_fwd((x[0],), (bn,), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        kbn.bn_train_fwd((x.transpose(2, 3),), (bn,), w)
+    with pytest.raises(ValueError, match="shape"):
+        kbn.bn_train_fwd((x, x[:3]), (bn, _bn_module(8, 1, dev)), w)
+    with pytest.raises(ValueError, match="dtype"):
+        kbn.bn_train_fwd((x,), (bn,), w.double())
+    with pytest.raises(ValueError, match="shape"):
+        kbn.bn_train_fwd((x,), (bn,), w[:5])
+    with pytest.raises(ValueError, match="on cpu"):
+        kbn.bn_train_fwd((x,), (bn,), w.cpu())
+    with pytest.raises(ValueError, match="dtype"):
+        kbn.bn_train_fwd((x,), (_bn_module(8, 0, dev).double(),), w)
+    with pytest.raises(ValueError, match="no rows"):
+        kbn.bn_train_fwd((x[:0],), (bn,), None)
+
+
+def test_trainer_step_batch_norm_kernels_match_plain(cuda_device):
+    """One float32 step of a tiny arch3 Trainer at dropout 0, kernels on
+    against kernels off (the eager BatchNorm and encoder): the loss and
+    every gradient within chip_smoke.py phase 8's limits (1e-5 and 1.5e-3
+    of the larger of each tensor's largest value and 1e-4 of all
+    gradients'), the running statistics within 1e-5; 15 BatchNorms a step
+    through each kernel with them on, none off."""
+    from realise_tpu_torch.ops.kernels import batch_norm as kbn
+
+    cfg = _tiny_cfg("float32").replace(hidden_dropout_prob=0.0,
+                                       attention_probs_dropout_prob=0.0)
+    gen = torch.Generator().manual_seed(0)
+    model = Realise(cfg, generator=gen)
+    model.install_glyphs((torch.rand(model.char_images_multifonts.shape,
+                                     generator=gen) < 0.5).float())
+    rng = np.random.RandomState(9)
+    b, s = 6, 24
+    masks = np.ones((b, s), np.int64)
+    masks[3, 15:] = 0
+    batch = {"src_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "tgt_idx": rng.randint(0, cfg.vocab_size, (b, s)),
+             "masks": masks, "loss_masks": masks.copy(),
+             "pho_idx": rng.randint(1, 30, (b, s, cfg.pho2_max_len)),
+             "pho_lens": rng.randint(0, cfg.pho2_max_len + 1, (b, s))}
+    results = []
+    for use_kernels in (True, False):
+        tr = Trainer(cfg, copy.deepcopy(model), use_kernels=use_kernels,
+                     device=cuda_device)
+        before = (kbn.bn_train_fwd.launches, kbn.bn_train_bwd.launches)
+        loss = float(tr.train_step(batch))
+        launches = (kbn.bn_train_fwd.launches - before[0],
+                    kbn.bn_train_bwd.launches - before[1])
+        assert launches == ((15, 15) if use_kernels else (0, 0))
+        results.append((loss, {n: p.grad.clone()
+                               for n, p in tr.model.named_parameters()},
+                        {n: t.clone() for n, t in tr.model.named_buffers()
+                         if "running_" in n}))
+    (loss_k, grads_k, bn_k), (loss_p, grads_p, bn_p) = results
+    assert abs(loss_k - loss_p) <= 1e-5 * abs(loss_p)
+    floor = 1e-4 * max(g.abs().max().item() for g in grads_p.values())
+    for n, g in grads_p.items():
+        err = ((grads_k[n] - g).abs().max().item()
+               / max(g.abs().max().item(), floor))
+        assert err <= 1.5e-3, n
+    for n, t in bn_p.items():
+        assert (bn_k[n] - t).abs().max().item() <= 1e-5, n
